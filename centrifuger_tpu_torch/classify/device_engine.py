@@ -1,0 +1,315 @@
+"""The fused classification program on the card (nucleotide).
+
+Port of centrifuger_tpu.classify.device_engine.fused_classify: per batch of
+Q read units (nr mates each) the device runs
+
+  chain_search    K1 + K4: decode the 2-bit reads into fwd / rc strand lanes
+                  and find each lane's semi-maximal exact-match chains
+  finalize_units  K3 (+ K2 inline): strand choice, row expansion, SA resolve,
+                  merge chains, record scores, best seqids, flags
+
+and packs the result rows plus the first FB_CAP flagged units' chains into
+one flat int32 `host_blob`, the layout centrifuger_tpu ships to its host
+finish stage.  Each kernel has a plain PyTorch twin here with the same
+signature; the wrappers take the twin only for CPU tensors.
+
+Semantics are value-identical to the JAX program and therefore to the host
+engine (classify/engine_np.py): the tests hold every output array to it.
+"""
+
+import torch
+
+from .. import kernels
+from ..fm.device import chain_search_lanes_plain, resolve_rows_plain, _check
+
+FLAG_ADJUST = 1        # both strands hit somewhere -> boundary-adjustment path
+FLAG_ROW_OVERFLOW = 2  # unit's expanded SA rows exceed the row budget
+FB_CAP = 64            # flagged units whose chains ship with the main result
+U_CAP = 8              # per-unit SA-row budget W (finalize_units.cu: W)
+ADJ = 15               # _scoreHitLenAdjust for nucleotide hits
+I32_MAX = 2**31 - 1
+
+
+# ------------------------------------------------------ K4: read decode
+
+def _rc_lanes(code, lengths):
+    """code [U, L] (255 invalid) -> (code, reverse-complement code)."""
+    U, L = code.shape
+    idxr = lengths.long()[:, None] - 1 - torch.arange(L, device=code.device)[None, :]
+    g = code.gather(1, idxr.clamp(0, L - 1))
+    rc = torch.where((idxr >= 0) & (g != 255), 3 - g, torch.full_like(g, 255))
+    return code, rc
+
+
+def decode_packed_dna(pack2, vmask, lengths):
+    """2-bit-packed reads -> (codes_fwd, codes_rc) int64 [U, L], 255 invalid.
+    pack2 [U, L/4] uint8 (4 codes per byte, little-endian), vmask [U, L/8]
+    uint8 (validity bit per base, little-endian)."""
+    U, L4 = pack2.shape
+    L = 4 * L4
+    j = torch.arange(L, device=pack2.device)[None, :]
+    w = pack2.long().repeat_interleave(4, dim=1)
+    code = (w >> ((j & 3) * 2)) & 3
+    v = (vmask.long().repeat_interleave(8, dim=1) >> (j & 7)) & 1
+    code = torch.where((v == 1) & (j < lengths.long()[:, None]), code,
+                       torch.full_like(code, 255))
+    return _rc_lanes(code, lengths)
+
+
+# ---------------------------------------------------- K1 + K4: chains
+
+def chain_search_plain(fm, pack2, vmask, lengths, mhl, H):
+    """Plain twin of chain_search: decode, interleave (lane 2u = fwd,
+    2u + 1 = rc), then the K1 state machine per lane."""
+    cf, cr = decode_packed_dna(pack2, vmask, lengths)
+    U, L = cf.shape
+    codes = torch.stack([cf, cr], dim=1).reshape(2 * U, L)
+    return chain_search_lanes_plain(fm, codes, lengths.repeat_interleave(2),
+                                    mhl, H)
+
+
+def chain_search(fm, pack2, vmask, lengths, mhl, H):
+    """K1 + K4 wrapper: pack2 uint8 [U, L/4], vmask uint8 [U, L/8], lengths
+    int32 [U] -> (hits int32 [2U, H, 4] of (sp, ep, l, off), nhits [2U])."""
+    _check(fm, "chain_search", pack2=(pack2, torch.uint8),
+           vmask=(vmask, torch.uint8), lengths=(lengths, torch.int32))
+    U, L4 = pack2.shape
+    if vmask.shape != (U, L4 // 2) or L4 % 2 or lengths.shape != (U,):
+        raise ValueError("chain_search: want pack2 [U, L/4], vmask [U, L/8], "
+                         "lengths [U] with L % 8 == 0")
+    if pack2.device.type == "cpu":
+        return chain_search_plain(fm, pack2, vmask, lengths, mhl, H)
+    hits = torch.empty(2 * U, H, 4, dtype=torch.int32, device=pack2.device)
+    nhits = torch.empty(2 * U, dtype=torch.int32, device=pack2.device)
+    if U:
+        kernels.launch("chain_search", fm, pack2, vmask, lengths, U, 4 * L4,
+                       mhl, H, hits, nhits)
+    return hits, nhits
+
+
+# ------------------------------------------------------ K3: finalize
+
+def _shift_right(x, s, fill):
+    """[Q, W] -> x shifted right by s columns, filled with `fill`."""
+    return torch.cat([torch.full_like(x[:, :s], fill), x[:, :x.shape[1] - s]], 1)
+
+
+def _seg_cumsum(vals, boundary):
+    """Inclusive segmented cumsum along dim 1; boundary starts a segment."""
+    v, f = vals, boundary
+    s = 1
+    while s < vals.shape[1]:
+        v = torch.where(f, v, _shift_right(v, s, 0) + v)
+        f = f | _shift_right(f, s, True)
+        s *= 2
+    return v
+
+
+def _changed(a):
+    """[Q, W] -> column differs from its left neighbour (column 0 = True)."""
+    return torch.cat([torch.ones_like(a[:, :1], dtype=torch.bool),
+                      a[:, 1:] != a[:, :-1]], 1)
+
+
+def _sort_rows(keys):
+    """Lexicographic sort along dim 1 by the key tensors (primary first)."""
+    perm = torch.arange(keys[0].shape[1], device=keys[0].device).expand_as(keys[0])
+    for k in reversed(keys):
+        order = torch.sort(k.gather(1, perm), dim=1, stable=True).indices
+        perm = perm.gather(1, order)
+    return [k.gather(1, perm) for k in keys]
+
+
+def finalize_units_plain(fm, hits, nhits, nr, mhl, max_entries, k_out):
+    """Plain twin of finalize_units: device_engine.fused_classify's finalize
+    (:211-461) as batched tensor code.  -> packed int32 [Q, 5 + k_out]."""
+    dev = hits.device
+    hits = hits.long()
+    nhits = nhits.long()
+    H = hits.shape[1]
+    Q = hits.shape[0] // (2 * nr)
+    W = U_CAP
+    rowQ = torch.arange(Q, device=dev)
+    hmask = torch.arange(H, device=dev)[None, :] < nhits[:, None]
+    hl = hits[:, :, 2]
+    lane_score = torch.where(hmask & (hl >= mhl), (hl - ADJ) ** 2, 0).sum(1)
+
+    f1, r1 = 2 * nr * rowQ, 2 * nr * rowQ + 1
+    if nr == 2:
+        f2, r2 = f1 + 2, f1 + 3
+        sc_plus = lane_score[f1] + lane_score[r2]
+        sc_minus = lane_score[r1] + lane_score[f2]
+        needs_adjust = ((nhits[f1] > 0) & (nhits[r1] > 0)) | \
+            ((nhits[f2] > 0) & (nhits[r2] > 0))
+    else:
+        sc_plus, sc_minus = lane_score[f1], lane_score[r1]
+        needs_adjust = (nhits[f1] > 0) & (nhits[r1] > 0)
+    tp, tm = sc_plus >= sc_minus, sc_minus >= sc_plus
+    neg = torch.full_like(f1, -1)
+    if nr == 2:
+        slot_lane = torch.stack([torch.where(tp, f1, neg), torch.where(tp, r2, neg),
+                                 torch.where(tm, r1, neg), torch.where(tm, f2, neg)], 1)
+        k_pattern = torch.tensor([1, 1, 0, 0], device=dev)
+    else:
+        slot_lane = torch.stack([torch.where(tp, f1, neg),
+                                 torch.where(tm, r1, neg)], 1)
+        k_pattern = torch.tensor([1, 0], device=dev)
+    NS = slot_lane.shape[1]
+    S = NS * H
+
+    # per-unit hit table [Q, S], slot-major
+    lane_safe = slot_lane.clamp(min=0).reshape(-1)
+    f_all = hits[lane_safe].reshape(Q, S, 4)
+    f_sp, f_ep, f_l, f_off = (f_all[:, :, i] for i in range(4))
+    f_n = nhits[lane_safe].reshape(Q, NS, 1).expand(Q, NS, H).reshape(Q, S)
+    hit_pos = torch.arange(H, device=dev).repeat(NS)[None, :]
+    present = (slot_lane[:, :, None] >= 0).expand(Q, NS, H).reshape(Q, S) & \
+        (hit_pos < f_n)
+    f_k = k_pattern[None, :, None].expand(Q, NS, H).reshape(Q, S)
+    colS = torch.arange(S, device=dev).expand(Q, S)
+    prev_idx = _shift_right(
+        torch.cummax(torch.where(present, colS, -1), dim=1).values, 1, -1)
+    has_prev = present & (prev_idx >= 0)
+    prev_safe = prev_idx.clamp(min=0)
+
+    # row expansion with striding (Classifier.hpp:606-652)
+    me = max_entries
+    rng = f_ep - f_sp + 1
+    simple = rng <= me
+    step = torch.div(rng + me - 1, me, rounding_mode="floor").clamp(min=1)
+    cnt_fwd = torch.div(rng + step - 1, step, rounding_mode="floor")
+    cnt_bwd = torch.minimum(torch.div(f_ep - f_sp, step, rounding_mode="floor") + 1,
+                            (me - cnt_fwd).clamp(min=1))
+    counts = torch.where(present, torch.where(simple, rng, cnt_fwd + cnt_bwd), 0)
+    wcum = counts.cumsum(1)
+    unit_total = wcum[:, -1]
+    overflow = unit_total > W
+    starts_in = wcum - counts
+    colW = torch.arange(W, device=dev).expand(Q, W)
+    row_valid = colW < unit_total.clamp(max=W)[:, None]
+    hit_of_row = (wcum[:, None, :] <= colW[:, :, None]).sum(2).clamp(max=S - 1)
+
+    def at_row(x):
+        return x.gather(1, hit_of_row)
+    pos = colW - at_row(starts_in)
+    r_sp, r_ep, r_step, r_cf = at_row(f_sp), at_row(f_ep), at_row(step), at_row(cnt_fwd)
+    rows = torch.where(at_row(simple), r_sp + pos,
+                       torch.where(pos < r_cf, r_sp + pos * r_step,
+                                   r_ep - (pos - r_cf) * r_step))
+    rows = torch.where(row_valid, rows, 0)
+    seqids = resolve_rows_plain(fm, rows.reshape(-1), row_valid.reshape(-1)) \
+        .long().reshape(Q, W)
+
+    # merge-chain ids over hits (Classifier.hpp:659-671)
+    sid_uniq = seqids.gather(1, starts_in.clamp(0, W - 1))
+    uniq_hit = present & (rng == 1)
+
+    def at_prev(x):
+        return x.gather(1, prev_safe)
+    mix = (has_prev & (f_k != at_prev(f_k))).any(1)
+    merge_prev = (has_prev & ~mix[:, None] & uniq_hit & at_prev(uniq_hit)
+                  & (f_k == at_prev(f_k))
+                  & (at_prev(f_off) + at_prev(f_l) + 1 == f_off)
+                  & (sid_uniq == at_prev(sid_uniq)))
+    chain_of_hit = (present & ~merge_prev).long().cumsum(1)
+
+    # per-unit sort of the expanded rows by (k, sid, hit)
+    key_a = torch.where(row_valid, at_row(f_k), I32_MAX)
+    key_b = torch.where(row_valid, seqids, I32_MAX)
+    key_c = torch.where(row_valid, hit_of_row, I32_MAX)
+    key_a, key_b, key_c = _sort_rows([key_a, key_b, key_c])
+    s_valid = key_a != I32_MAX
+    s_hit = key_c.clamp(max=S - 1)
+    s_l = f_l.gather(1, s_hit)
+    s_chain = chain_of_hit.gather(1, s_hit)
+    ch_a, ch_b, ch_c = _changed(key_a), _changed(key_b), _changed(key_c)
+    pair_first = (ch_a | ch_b | ch_c) & s_valid
+    cb = (ch_a | ch_b | _changed(s_chain)) & s_valid
+    rb = (ch_a | ch_b) & s_valid
+
+    # chain sums -> chain scores -> record score / hitlen
+    w_l = torch.where(pair_first, s_l, 0)
+    one = torch.ones_like(s_valid[:, :1])
+    last_of_chain = torch.cat([cb[:, 1:] | ~s_valid[:, 1:], one], 1) & s_valid
+    chain_lsum = _seg_cumsum(w_l, cb | ~s_valid)
+    chain_score = torch.where(last_of_chain & (chain_lsum >= mhl),
+                              (chain_lsum - ADJ) ** 2, 0)
+    last_of_rec = torch.cat([rb[:, 1:] | ~s_valid[:, 1:], one], 1) & s_valid
+    rec_score = torch.where(last_of_rec, _seg_cumsum(chain_score, rb | ~s_valid), -1)
+    rec_hitlen = _seg_cumsum(w_l, rb | ~s_valid)
+
+    # best / second / hitlen
+    unit_best = rec_score.max(1).values
+    qual = last_of_rec & (rec_score == unit_best[:, None])
+    unit_nbest = qual.long().sum(1)
+    first_best = qual & (qual.long().cumsum(1) == 1)
+    hitlen_out = torch.where(first_best, rec_hitlen, 0).max(1).values
+    unit_rest = torch.where(last_of_rec & (rec_score < unit_best[:, None]),
+                            rec_score, 0).max(1).values
+    score_out = unit_best.clamp(min=0)
+    second_out = torch.where(unit_nbest >= 2, score_out, unit_rest.clamp(min=0))
+
+    # best seqids: dedup by sid (first k wins), ordered by (k, sid)
+    d_b, d_c = _sort_rows([torch.where(qual, key_b, I32_MAX),
+                           torch.where(qual, key_a & 1, I32_MAX)])
+    d_valid = d_b != I32_MAX
+    dup = d_valid & ~_changed(d_b)
+    keep = d_valid & ~dup
+    e_b, e_c = _sort_rows([torch.where(keep, d_c, I32_MAX),
+                           torch.where(keep, d_b, I32_MAX)])
+    kw = min(k_out, W)
+    sids_out = torch.zeros(Q, k_out, dtype=torch.long, device=dev)
+    sids_out[:, :kw] = torch.where(e_b[:, :kw] != I32_MAX, e_c[:, :kw], 0)
+    flags = needs_adjust.long() * FLAG_ADJUST | overflow.long() * FLAG_ROW_OVERFLOW
+    return torch.cat([score_out[:, None], second_out[:, None], hitlen_out[:, None],
+                      (unit_nbest - dup.long().sum(1))[:, None], flags[:, None],
+                      sids_out], 1).int()
+
+
+def finalize_units(fm, hits, nhits, nr, mhl, max_entries, k_out):
+    """K3 wrapper: hits int32 [2 nr Q, H, 4], nhits int32 [2 nr Q] ->
+    packed int32 [Q, 5 + k_out]."""
+    _check(fm, "finalize_units", hits=(hits, torch.int32), nhits=(nhits, torch.int32))
+    B, H, four = hits.shape
+    if four != 4 or nhits.shape != (B,) or B % (2 * nr):
+        raise ValueError("finalize_units: want hits [2 nr Q, H, 4], nhits [2 nr Q]")
+    if hits.device.type == "cpu":
+        return finalize_units_plain(fm, hits, nhits, nr, mhl, max_entries, k_out)
+    Q = B // (2 * nr)
+    packed = torch.empty(Q, 5 + k_out, dtype=torch.int32, device=hits.device)
+    if Q:
+        kernels.launch("finalize_units", fm, hits, nhits, Q, nr, H, mhl,
+                       max_entries, k_out, packed)
+    return packed
+
+
+# ------------------------------------------------------------ the program
+
+def fused_classify(fm, pack2, vmask, lengths, nr, mhl, H, max_result,
+                   hitk_factor, k_out, r_cap):
+    """The nucleotide device program (device_engine.fused_classify).
+    pack2/vmask/lengths: U = Q * nr packed reads.  Returns a dict of tensors:
+    packed [Q, 5 + k_out] (score, second, hitlen, n_best, flags, sids...),
+    hits [2U, H, 4], nhits [2U], fb_units, fb_hits, fb_nh and host_blob."""
+    U = pack2.shape[0]
+    Q = U // nr
+    if r_cap // Q != U_CAP:
+        raise ValueError("the per-unit row budget r_cap // Q must be %d" % U_CAP)
+    hits, nhits = chain_search(fm, pack2, vmask, lengths, mhl, H)
+    packed = finalize_units(fm, hits, nhits, nr, mhl, max_result * hitk_factor,
+                            k_out)
+    # the first FB_CAP flagged units' chains ship with the result: the
+    # selection is data movement (nonzero / gather), not a kernel
+    lpu = 2 * nr
+    fb_mask = (packed[:, 4] != 0) | (packed[:, 3] > k_out)
+    nfb = min(Q, FB_CAP)
+    fb_units = torch.full((nfb,), -1, dtype=torch.int32, device=pack2.device)
+    sel = fb_mask.nonzero()[:nfb, 0]
+    fb_units[:len(sel)] = sel.int()
+    fb_lanes = (lpu * fb_units.clamp(min=0).long()[:, None]
+                + torch.arange(lpu, device=pack2.device)[None, :]).reshape(-1)
+    fb_hits = hits[fb_lanes]
+    fb_nh = nhits[fb_lanes]
+    host_blob = torch.cat([packed.reshape(-1), fb_units, fb_hits.reshape(-1), fb_nh])
+    return dict(packed=packed, hits=hits, nhits=nhits, fb_units=fb_units,
+                fb_hits=fb_hits, fb_nh=fb_nh, host_blob=host_blob)

@@ -1,0 +1,206 @@
+# Port copy of centrifuger_tpu.fm.runblock (host code, no accelerator).
+"""Run-block compressed sequence: the RBBWT structure of the Centrifuger paper.
+
+Semantics mirror Sequence_RunBlock (reference compactds/Sequence_RunBlock.hpp):
+the sequence is split into fixed blocks of size b; blocks containing a single
+run compress to one character in a `run` stream, the rest concatenate into a
+`lit` stream, and an indicator bitvector marks which blocks are run blocks
+(reference :231-358 for the split, :378-416 for Rank).
+
+TPU-native representation: the two streams are PackedSeq (flat occ checkpoints,
+vectorized popcount rank) instead of wavelet trees, and the indicator is a flat
+rank bitvector.  Rank return values are identical.
+"""
+
+import numpy as np
+
+from ..succinct.bitvector import Bitvector
+from ..succinct.packed import PackedSeq
+from ..utils import div_ceil
+
+
+def choose_block_size(codes, sigma, infer_len=1024):
+    """Pick the run-block size minimizing estimated space; same candidate set as
+    the reference (powers of two, 1.5x best, sqrt(mean run length); reference
+    compactds/Sequence_RunBlock.hpp:135-177) but measured exactly on the data
+    with vectorized prefix scans instead of sampled chunks."""
+    n = len(codes)
+    if n == 0:
+        return 1
+    alphabet_bit = max(1, (sigma - 1).bit_length())
+    boundaries = np.flatnonzero(codes[1:] != codes[:-1]) + 1
+    run_starts = np.concatenate([[0], boundaries])
+    run_ends = np.concatenate([boundaries, [n]])
+    avg_run = n / len(run_starts)
+
+    def space(b):
+        if b <= 1:
+            return alphabet_bit * n
+        # run blocks = blocks fully inside a single run
+        nblocks = div_ceil(n, b)
+        # block i is a run block iff the run covering position i*b extends past
+        # min((i+1)*b, n)-1
+        starts = np.arange(nblocks, dtype=np.int64) * b
+        ends = np.minimum(starts + b, n) - 1
+        run_idx = np.searchsorted(run_starts, starts, side="right") - 1
+        is_run = run_ends[run_idx] - 1 >= ends
+        run_cnt = int(is_run.sum())
+        lit_len = n - (int((ends + 1 - starts)[is_run].sum()))
+        return nblocks + alphabet_bit * (run_cnt + lit_len)
+
+    cands = []
+    b = 1
+    while b <= infer_len:
+        cands.append(b)
+        b *= 2
+    best = min(cands, key=space)
+    extra = []
+    if best >= 2:
+        extra.append(best // 2 * 3)
+    sq = int(np.ceil(np.sqrt(avg_run)))
+    if sq > 2:
+        extra.append(sq)
+    for e in extra:
+        if space(e) < space(best):
+            best = e
+    return best
+
+
+class RunBlockSeq:
+    __slots__ = ("n", "b", "block_cnt", "sigma", "indicator", "lit", "run")
+
+    def __init__(self, n, b, block_cnt, sigma, indicator, lit, run):
+        self.n = int(n)
+        self.b = int(b)
+        self.block_cnt = int(block_cnt)
+        self.sigma = int(sigma)
+        self.indicator = indicator
+        self.lit = lit
+        self.run = run
+
+    @classmethod
+    def from_codes(cls, codes, sigma, b=0):
+        """b=0: auto block size; b=1: no compression (block covers whole seq,
+        mirroring the reference's `_b = _n` sentinel, Sequence_RunBlock.hpp:245-246)."""
+        codes = np.asarray(codes, dtype=np.uint8)
+        n = len(codes)
+        if b == 0:
+            b = choose_block_size(codes, sigma)
+        if b == 1:
+            b = max(n, 1)
+        block_cnt = div_ceil(max(n, 1), b)
+
+        starts = np.arange(block_cnt, dtype=np.int64) * b
+        ends = np.minimum(starts + b, n)
+        if n > 0:
+            # block is a run block iff all symbols equal its first symbol
+            diff = np.zeros(n, dtype=np.int64)
+            diff[1:] = (codes[1:] != codes[:-1]).astype(np.int64)
+            diff[starts] = 0  # first element of each block never counts as a change
+            csum = np.concatenate([[0], np.cumsum(diff)])
+            is_run = (csum[ends] - csum[starts]) == 0
+        else:
+            is_run = np.zeros(block_cnt, dtype=bool)
+
+        indicator = Bitvector.from_bits(is_run)
+
+        # literal stream: concatenation of non-run blocks
+        if n > 0:
+            blk_of = np.arange(n) // b
+            lit_codes = codes[~is_run[blk_of]]
+            run_codes = codes[starts[is_run]]
+        else:
+            lit_codes = np.zeros(0, dtype=np.uint8)
+            run_codes = np.zeros(0, dtype=np.uint8)
+        lit = PackedSeq.from_codes(lit_codes, sigma)
+        run = PackedSeq.from_codes(run_codes, sigma)
+        return cls(n, b, block_cnt, sigma, indicator, lit, run)
+
+    def access(self, idx):
+        """symbol codes at positions idx (vectorized).
+        Mirrors Sequence_RunBlock::Access (reference :360-376)."""
+        idx = np.atleast_1d(np.asarray(idx, dtype=np.int64))
+        bi = idx // self.b
+        typ = self.indicator.access(bi)
+        r1 = self.indicator.rank1_inclusive(bi)
+        # literal block: r = rank1(bi) run blocks before (since typ==0, inclusive==exclusive)
+        lit_idx = idx - self.b * r1
+        # run block: r0 = rank0(bi) literal blocks before; index of run block
+        r0 = bi + 1 - r1
+        run_idx = (idx - self.b * r0) // self.b
+        out = np.where(typ == 0,
+                       self.lit.access(np.clip(lit_idx, 0, max(self.lit.n - 1, 0))),
+                       self.run.access(np.clip(run_idx, 0, max(self.run.n - 1, 0))))
+        return out.astype(np.uint8)
+
+    def rank_inclusive(self, c, idx):
+        """count of c in seq[0..idx]; exact value-equivalent of
+        Sequence_RunBlock::Rank (reference :378-416), vectorized."""
+        idx = np.atleast_1d(np.asarray(idx, dtype=np.int64))
+        c = np.broadcast_to(np.asarray(c, dtype=np.uint32), idx.shape)
+        b = self.b
+        bi = idx // b
+        typ = self.indicator.access(bi)
+        if b < self.n:
+            ranki = self.indicator.rank_inclusive(typ, bi)
+        else:
+            ranki = np.ones(idx.shape, dtype=np.int64)
+        other = (bi + 1) - ranki
+
+        # type 0 (literal block): rank in lit at (ranki-1)*b + idx%b
+        lit_pos = (ranki - 1) * b + idx % b
+        ret_lit = self._lit_rank(c, lit_pos)
+
+        # type 1 (run block): RankAndTest on run stream at ranki-1
+        run_pos = np.clip(ranki - 1, 0, max(self.run.n - 1, 0))
+        rb_rank = self._run_rank(c, ranki - 1)
+        in_run = self.run.access(run_pos) == c.astype(np.uint8)
+        ret_run = np.where(in_run, (rb_rank - 1) * b + idx % b + 1, rb_rank * b)
+
+        ret = np.where(typ == 0, ret_lit, ret_run)
+
+        # cross-stream contribution (skip when other == 0)
+        cross_lit = self._run_rank(c, other - 1) * b          # for typ==0
+        cross_run = self._lit_rank(c, other * b - 1)          # for typ==1
+        cross = np.where(typ == 0, cross_lit, cross_run)
+        ret = ret + np.where(other == 0, 0, cross)
+        return ret
+
+    def _lit_rank(self, c, pos):
+        """lit.rank_inclusive with empty-stream and pos<0 guards."""
+        if self.lit.n == 0:
+            return np.zeros(pos.shape, dtype=np.int64)
+        clipped = np.clip(pos, 0, self.lit.n - 1)
+        r = self.lit.rank_inclusive(c, clipped)
+        return np.where(pos < 0, 0, r)
+
+    def _run_rank(self, c, pos):
+        if self.run.n == 0:
+            return np.zeros(pos.shape, dtype=np.int64)
+        clipped = np.clip(pos, 0, self.run.n - 1)
+        r = self.run.rank_inclusive(c, clipped)
+        return np.where(pos < 0, 0, r)
+
+    def decode(self):
+        """Full reconstruction of the sequence — structural, not rank-based:
+        literal positions are the lit stream verbatim (in order), run blocks
+        repeat their single symbol.  O(n) with small temporaries (the old
+        access(arange(n)) path cost ~10 minutes at 300 Mnt)."""
+        n, b = self.n, self.b
+        if n == 0:
+            return np.zeros(0, dtype=np.uint8)
+        bc = self.block_cnt
+        starts = np.arange(bc, dtype=np.int64) * b
+        lens_all = np.minimum(starts + b, n) - starts
+        is_run = self.indicator.access(np.arange(bc)) == 1
+        pos_is_run = np.repeat(is_run, lens_all)
+        out = np.empty(n, dtype=np.uint8)
+        if self.lit.n:
+            out[~pos_is_run] = self.lit.decode_all()
+        if self.run.n:
+            out[pos_is_run] = np.repeat(self.run.decode_all(),
+                                        lens_all[is_run])
+        return out
+
+    def nbytes(self):
+        return self.indicator.nbytes() + self.lit.nbytes() + self.run.nbytes()
