@@ -371,11 +371,23 @@ class ClassifierTorch(ClassifierNP):
 
     # ------------------------------------------------------------ main entry
 
+    def _unfused_batch(self, queries):
+        """A batch the fused program cannot take (-k 0, --hitk-factor 0, a
+        read over L_MAX).  The JAX package runs it on its non-fused device
+        engine, which is not ported yet; only a CPU engine may take the exact
+        host route, which gives the same results."""
+        if self.device.type != "cpu":
+            raise NotImplementedError(
+                "reads over %d bp, -k 0 and --hitk-factor 0 need the non-fused "
+                "device engine, not ported yet to centrifuger_tpu_torch (ROADMAP "
+                "queue 1 item 9)" % self.L_MAX)
+        return super().query_batch(queries)
+
     def query_batch(self, queries):
         if not queries:
             return []
         if not self._fused_ok() or self._too_long(queries):
-            return super().query_batch(queries)
+            return self._unfused_batch(queries)
         return self._finish_fused(self._dispatch_fused(queries))
 
     def _finish_pool(self):
@@ -401,7 +413,7 @@ class ClassifierTorch(ClassifierNP):
                 if not batch:
                     yield np.zeros((0, 5 + self.K_OUT), np.int32), {}, []
                 else:
-                    yield None, dict(enumerate(super().query_batch(batch))), batch
+                    yield None, dict(enumerate(self._unfused_batch(batch))), batch
                 continue
             pend.append(pool.submit(self._finish_packed_ctx,
                                     self._dispatch_fused(batch)))

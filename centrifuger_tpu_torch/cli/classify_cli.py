@@ -26,6 +26,9 @@ from ..io.writer import ResultWriter
 _NOT_PORTED = [
     ("--engine jax", lambda a: a.engine == "jax",
      "the non-fused engine (ROADMAP queue 1 item 9)"),
+    ("-k 0/--hitk-factor 0 on the card",
+     lambda a: a.device != "cpu" and (a.max_result <= 0 or a.hitk_factor <= 0),
+     "the non-fused engine (ROADMAP queue 1 item 9)"),
     ("--serve-layout runblock", lambda a: a.serve_layout != "plain",
      "the run-block serving layout (ROADMAP queue 1 item 7, kernel K8)"),
     ("--shards", lambda a: a.shards > 1,

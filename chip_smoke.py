@@ -17,13 +17,15 @@ PyTorch twin.  Phases (any failure exits non-zero and prints no result):
      every kernel must have launched during this run
   5. the same run with --no-rowmap (the LF-walk resolve): the same TSV
   6. each kernel against its plain twin on the same CUDA tensors at the main
-     path's shapes (one batch of 8,192 pairs = 32,768 strand lanes), with
-     CUDA-event timings, and the first batch's TSV against a device="cpu" run
+     path's shapes, with CUDA-event timings: chain_search and finalize_units
+     on one batch of 8,192 pairs (32,768 strand lanes), prefix_search and
+     resolve_rows on the very tensors the host finish stage hands them for
+     a batch; and the first batch's TSV against a device="cpu" run
 
 The second-to-last stdout line is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Logs go to chiprun_out/.
 
-  python3 chip_smoke.py [--db-nt N] [--pairs N] [--skip-goldens]
+  python3 chip_smoke.py [--db-nt N] [--seed S]
 """
 
 import argparse
@@ -48,6 +50,7 @@ OPS_PER_MS = 67e12 / 1e3              # H100 SXM float32 peak (no integer entry
 OPS_PER_TABLE_BYTE = 2                # ~8 integer ops (xor, not, shifts, and,
                                       # popc, add) per 4-byte rank word read
 BATCH_PAIRS = 8192
+N_PAIRS = 65536
 READ_LEN = 100
 N_GENOMES = 20
 
@@ -186,6 +189,19 @@ def classify(prefix, reads_dir, extra, log, paired=True):
     return buf.getvalue(), (tuple(map(int, m.groups())) if m else None)
 
 
+def read_batches(reads_dir):
+    """The paired reads as the CLI batches them: engine queries per batch of
+    BATCH_PAIRS pairs."""
+    from centrifuger_tpu_torch.cli.classify_cli import _batch_queries
+    from centrifuger_tpu_torch.io.readers import ReadFiles
+    r1, r2 = ReadFiles(), ReadFiles()
+    r1.add_read_file(os.path.join(reads_dir, "reads_1.fq"))
+    r2.add_read_file(os.path.join(reads_dir, "reads_2.fq"))
+    pairs = list(zip(r1, r2))
+    return [_batch_queries(pairs[i:i + BATCH_PAIRS])
+            for i in range(0, len(pairs), BATCH_PAIRS)]
+
+
 def cuda_ms(fn, reps):
     """Median milliseconds of fn() on the card (CUDA events, after a warm-up)."""
     import torch
@@ -232,27 +248,17 @@ def phase_kernels(prefix, reads_dir, launches):
     """Each kernel against its plain twin at the main path's shapes."""
     import torch
     from centrifuger_tpu_torch.build import load_index
-    from centrifuger_tpu_torch.classify.engine import ClassifierTorch
+    from centrifuger_tpu_torch.classify import engine as engine_mod
     from centrifuger_tpu_torch.classify import device_engine as de
     from centrifuger_tpu_torch.classify.params import ClassifierParam
-    from centrifuger_tpu_torch.cli.classify_cli import _batch_queries
     from centrifuger_tpu_torch.fm import device as fd
-    from centrifuger_tpu_torch.io.readers import ReadFiles
 
     fm_host, tax, _, _ = load_index(prefix)
-    eng = ClassifierTorch(fm_host, tax, ClassifierParam(), device="cuda")
+    eng = engine_mod.ClassifierTorch(fm_host, tax, ClassifierParam(), device="cuda")
     fm = eng.dev
-    r1, r2 = ReadFiles(), ReadFiles()
-    r1.add_read_file(os.path.join(reads_dir, "reads_1.fq"))
-    r2.add_read_file(os.path.join(reads_dir, "reads_2.fq"))
-    batch = []
-    for a, b in zip(r1, r2):
-        batch.append((a, b))
-        if len(batch) == BATCH_PAIRS:
-            break
-    queries = _batch_queries(batch)
+    batches = read_batches(reads_dir)
+    queries = batches[0]
     (pack2, vmask), lengths, nr, L = eng._pack_reads(queries)
-    Q = len(queries)
     pack2, vmask, lengths = (torch.from_numpy(x).cuda() for x in (pack2, vmask, lengths))
     mhl = eng.param.min_hit_len
     H = L // (mhl + 1) + 1
@@ -310,14 +316,43 @@ def phase_kernels(prefix, reads_dir, launches):
     flagged = int(((packed[:, 4] != 0) | (packed[:, 3] > eng.K_OUT)).sum())
     say("phase 6: %d units, %d flagged" % (len(packed), flagged))
 
-    # K2 on Q * U_CAP rows: every recorded hit's sp, then random rows
-    g = torch.Generator(device="cuda").manual_seed(5)
-    m = torch.arange(H, device="cuda")[None, :] < nhits[:, None]
-    rows = hits[:, :, 0][m]
-    M = Q * de.U_CAP
-    rows = torch.cat([rows, torch.randint(0, fm.n, (M,), device="cuda", generator=g,
-                                          dtype=torch.int32)])[:M].contiguous()
-    valid = torch.ones(M, dtype=torch.bool, device="cuda")
+    # K5 and K2 on the tensors the host finish stage hands their wrappers
+    # when the batches run as on the main path: the first call of each
+    handed = {}
+
+    def spy(name, fn):
+        def call(fm_, *args):
+            handed.setdefault(name, args)
+            return fn(fm_, *args)
+        return call
+
+    engine_mod.prefix_search = spy("prefix_search", fd.prefix_search)
+    engine_mod.resolve_rows = spy("resolve_rows", fd.resolve_rows)
+    try:
+        for qs in batches:
+            eng.finish_packed(eng._dispatch_fused(qs))
+            if len(handed) == 2:
+                break
+    finally:
+        engine_mod.prefix_search = fd.prefix_search
+        engine_mod.resolve_rows = fd.resolve_rows
+    if len(handed) != 2:
+        fail("the batches never called prefix_search and resolve_rows")
+    codes, ms = handed["prefix_search"]
+    rows, valid = handed["resolve_rows"]
+    say("phase 6: the finish stage hands prefix_search %d lanes x %d codes (ms "
+        "%d-%d, %d lanes with ms < %d) and resolve_rows %d rows"
+        % (codes.shape[0], codes.shape[1], int(ms.min()), int(ms.max()),
+           int((ms < codes.shape[1]).sum()), codes.shape[1], len(rows)))
+
+    l, sp, ep = fd.prefix_search(fm, codes, ms)
+    (pl, psp, pep), tr = traffic(lambda: fd.prefix_search_plain(fm, codes, ms))
+    record("prefix_search", "centrifuger_tpu/fm/device.py:1147",
+           max(max_abs_err(l, pl), max_abs_err(sp, psp), max_abs_err(ep, pep)),
+           cuda_ms(lambda: fd.prefix_search(fm, codes, ms), 20),
+           cuda_ms(lambda: fd.prefix_search_plain(fm, codes, ms), 3),
+           tr, nbytes(codes, ms) + 3 * nbytes(ms))
+
     rowmap = fm.rowmap
     for branch in ("rowmap", "lf_walk"):
         fm.rowmap = rowmap if branch == "rowmap" else None
@@ -339,18 +374,6 @@ def phase_kernels(prefix, reads_dir, launches):
                 "%.4f ms  bound %.4f ms (%s)"
                 % ((ms, pms) + bound(tr, nbytes(rows, valid, got))))
     fm.rowmap = rowmap
-
-    # K5 on the batch's forward read lanes, ms = read length (whole reads)
-    cf, _ = de.decode_packed_dna(pack2, vmask, lengths)
-    codes = cf[:1024].to(torch.uint8).contiguous()
-    ms = lengths[:1024].contiguous()
-    l, sp, ep = fd.prefix_search(fm, codes, ms)
-    (pl, psp, pep), tr = traffic(lambda: fd.prefix_search_plain(fm, codes, ms))
-    record("prefix_search", "centrifuger_tpu/fm/device.py:1147",
-           max(max_abs_err(l, pl), max_abs_err(sp, psp), max_abs_err(ep, pep)),
-           cuda_ms(lambda: fd.prefix_search(fm, codes, ms), 20),
-           cuda_ms(lambda: fd.prefix_search_plain(fm, codes, ms), 3),
-           tr, nbytes(codes, ms) + 3 * nbytes(ms))
     if any(r["max_abs_err"] for r in recs):
         fail("a kernel disagrees with its plain twin: %s" % recs)
     return recs
@@ -360,9 +383,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--db-nt", type=int, default=64_000_000,
                     help="synthetic DB size (the repo's big DB is 300000000)")
-    ap.add_argument("--pairs", type=int, default=65536)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--skip-goldens", action="store_true")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, "centrifuger_tpu_torch")):
@@ -388,16 +409,15 @@ def main():
         for k, text in kernels.BUILD_LOG.items():
             log.write("---- nvcc %s\n%s\n" % (k, text))
 
-        if not args.skip_goldens:
-            phase_goldens(log)
+        phase_goldens(log)
 
         t0 = time.time()
         genomes = make_genomes(args.db_nt, args.seed)
         write_db(genomes, WORK)
-        write_reads(genomes, args.pairs, args.seed + 1, WORK)
+        write_reads(genomes, N_PAIRS, args.seed + 1, WORK)
         del genomes
         say("phase 4: %d nt DB and %d pairs written in %.1f s"
-            % (args.db_nt, args.pairs, time.time() - t0))
+            % (args.db_nt, N_PAIRS, time.time() - t0))
         t0 = time.time()
         prefix = os.path.join(WORK, "db")
         build(WORK, prefix, log)
@@ -418,8 +438,8 @@ def main():
             say("phase %s: %s: %d pairs in %.2f s through the CLI (index load "
                 "included): %.0f read pairs/s; units fast %d fallback %d; launches "
                 "%s; peak device memory %.1f MB"
-                % ("4" if name == "main" else "5", name, args.pairs, wall,
-                   args.pairs / wall, units[0], units[1], launches,
+                % ("4" if name == "main" else "5", name, N_PAIRS, wall,
+                   N_PAIRS / wall, units[0], units[1], launches,
                    torch.cuda.max_memory_allocated() / 1e6))
             missing = [k for k, v in launches.items() if v == 0]
             if name == "main" and missing:
@@ -435,22 +455,15 @@ def main():
         from centrifuger_tpu_torch.build import load_index
         from centrifuger_tpu_torch.classify.engine import ClassifierTorch
         from centrifuger_tpu_torch.classify.params import ClassifierParam
-        from centrifuger_tpu_torch.cli.classify_cli import _batch_queries
-        from centrifuger_tpu_torch.io.readers import ReadFiles
         fm_host, tax, _, _ = load_index(prefix)
         eng = ClassifierTorch(fm_host, tax, ClassifierParam(), device="cuda")
-        r1, r2 = ReadFiles(), ReadFiles()
-        r1.add_read_file(os.path.join(WORK, "reads_1.fq"))
-        r2.add_read_file(os.path.join(WORK, "reads_2.fq"))
-        pairs = list(zip(r1, r2))
-        bq = [_batch_queries(pairs[i:i + BATCH_PAIRS])
-              for i in range(0, len(pairs), BATCH_PAIRS)]
+        bq = read_batches(WORK)
         for rep in range(2):
             torch.cuda.synchronize()
             t0 = time.time()
             for packed, fb, queries in eng.query_pipelined_packed(iter(bq)):
                 eng.format_tsv_batch(packed, fb, queries, ["r"] * len(queries))
-            rate = len(pairs) / (time.time() - t0)
+            rate = N_PAIRS / (time.time() - t0)
         say("phase 4: steady-state engine rate (reads parsed beforehand, TSV "
             "formatted): %.0f read pairs/s" % rate)
         # device busy share of one more pass, from a profiler trace

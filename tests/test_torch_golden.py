@@ -88,13 +88,7 @@ def test_expand_taxid_matches_jax_cli(tmp_path_factory):
     assert got == want
 
 
-@pytest.mark.parametrize("paired,k", [(False, 1), (True, 1), (False, 2), (True, 3)])
-def test_engine_vs_host_oracle_random(tmp_path_factory, paired, k):
-    from centrifuger_tpu_torch.build import load_index
-    from centrifuger_tpu_torch.classify.engine import ClassifierTorch
-    from centrifuger_tpu_torch.classify.engine_np import ClassifierNP
-    from centrifuger_tpu_torch.classify.params import ClassifierParam
-    fm, tax, _, _ = load_index(port_index("tiny", tmp_path_factory))
+def tiny_genomes():
     genomes = []
     with open(os.path.join(FIXTURE_DIR, "tiny", "ref.fa")) as f:
         for line in f:
@@ -102,20 +96,60 @@ def test_engine_vs_host_oracle_random(tmp_path_factory, paired, k):
                 genomes.append([])
             else:
                 genomes[-1].append(line.strip())
-    genomes = ["".join(g) for g in genomes]
-    queries = _rand_reads(random.Random(97 + k + paired), genomes, 30, 60, paired)
-    oracle = ClassifierNP(fm, tax, ClassifierParam(max_result=k))
-    port = ClassifierTorch(fm, tax, ClassifierParam(max_result=k), device="cpu")
+    return ["".join(g) for g in genomes]
+
+
+def engines(prefix, k):
+    """(the JAX package's exact host engine, the port's engine on the CPU),
+    each on its own package's load of the same index files."""
+    from centrifuger_tpu.build import load_index as jax_load_index
+    from centrifuger_tpu.classify.engine_np import ClassifierNP
+    from centrifuger_tpu.classify.params import ClassifierParam as JaxParam
+    from centrifuger_tpu_torch.build import load_index
+    from centrifuger_tpu_torch.classify.engine import ClassifierTorch
+    from centrifuger_tpu_torch.classify.params import ClassifierParam
+    jfm, jtax, _, _ = jax_load_index(prefix)
+    fm, tax, _, _ = load_index(prefix)
+    return (ClassifierNP(jfm, jtax, JaxParam(max_result=k)),
+            ClassifierTorch(fm, tax, ClassifierParam(max_result=k), device="cpu"))
+
+
+@pytest.mark.parametrize("paired,k", [(False, 1), (True, 1), (False, 2), (True, 3)])
+def test_engine_vs_host_oracle_random(tmp_path_factory, paired, k):
+    oracle, port = engines(port_index("tiny", tmp_path_factory), k)
+    queries = _rand_reads(random.Random(97 + k + paired), tiny_genomes(), 30, 60, paired)
     want = [oracle.query(r1, r2) for r1, r2 in queries]
     got = port.query_batch(queries)
     for i, (w, g) in enumerate(zip(want, got)):
         assert _results_equal(w, g), i
 
 
+def test_read_over_l_max(tmp_path_factory):
+    """A read over L_MAX needs the non-fused device engine.  On the CPU the
+    port takes the exact host route and agrees with the JAX package's host
+    engine; an engine on the card raises, naming the slice that ports it.
+    The device is read only by that check, so a CPU engine relabelled cuda
+    stands in for one on the card.  The read is mostly N, which keeps the
+    host engine's work small."""
+    oracle, port = engines(port_index("tiny", tmp_path_factory), 1)
+    read = np.frombuffer(("N" * 8100 + tiny_genomes()[0][500:600]).encode(), np.uint8)
+    assert len(read) > port.L_MAX
+    want = oracle.query(read, None)
+    assert _results_equal(want, port.query_batch([(read, None)])[0])
+    [(packed, fb, _)] = port.query_pipelined_packed(iter([[(read, None)]]))
+    assert packed is None and _results_equal(want, fb[0])
+    port.device = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        port.query_batch([(read, None)])
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        list(port.query_pipelined_packed(iter([[(read, None)]])))
+
+
 @pytest.mark.parametrize("flag", [["--engine", "jax"], ["--serve-layout", "runblock"],
                                   ["--shards", "2"], ["--merge-readpair"],
                                   ["--read-format", "r1:0:-1"], ["--un", "x"],
-                                  ["--barcode", "b.fq"], ["--sample-sheet", "s.tsv"]])
+                                  ["--barcode", "b.fq"], ["--sample-sheet", "s.tsv"],
+                                  ["-k", "0"], ["--hitk-factor", "0"]])
 def test_unported_flags_exit_naming_the_slice(tmp_path_factory, flag, capsys):
     from centrifuger_tpu_torch.cli import classify_cli
     with pytest.raises(SystemExit) as e:
