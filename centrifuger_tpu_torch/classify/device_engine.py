@@ -1,12 +1,15 @@
-"""The fused classification program on the card (nucleotide).
+"""The fused classification program on the card (nucleotide and protein).
 
 Port of centrifuger_tpu.classify.device_engine.fused_classify: per batch of
 Q read units (nr mates each) the device runs
 
   chain_search    K1 + K4: decode the 2-bit reads into fwd / rc strand lanes
                   and find each lane's semi-maximal exact-match chains
-  finalize_units  K3 (+ K2 inline): strand choice, row expansion, SA resolve,
-                  merge chains, record scores, best seqids, flags
+                  (protein: the host translates, and chain_search_lanes takes
+                  six ready-made amino-acid code lanes a read)
+  finalize_units  K3 (+ K2 inline): strand choice (protein: frame choice
+                  first), row expansion, SA resolve, merge chains, record
+                  scores, best seqids, flags
 
 and packs the result rows plus the first FB_CAP flagged units' chains into
 one flat int32 `host_blob`, the layout centrifuger_tpu ships to its host
@@ -20,13 +23,15 @@ engine (classify/engine_np.py): the tests hold every output array to it.
 import torch
 
 from .. import kernels
-from ..fm.device import chain_search_lanes_plain, resolve_rows_plain, _check
+from ..fm.device import (chain_search_lanes, chain_search_lanes_plain, chain_variant,
+                         resolve_rows_plain, _check)
 
 FLAG_ADJUST = 1        # both strands hit somewhere -> boundary-adjustment path
 FLAG_ROW_OVERFLOW = 2  # unit's expanded SA rows exceed the row budget
 FB_CAP = 64            # flagged units whose chains ship with the main result
 U_CAP = 8              # per-unit SA-row budget W (finalize_units.cu: W)
 ADJ = 15               # _scoreHitLenAdjust for nucleotide hits
+ADJ_PROTEIN = 5        # ... and for amino-acid hits
 I32_MAX = 2**31 - 1
 
 
@@ -83,7 +88,7 @@ def chain_search(fm, pack2, vmask, lengths, mhl, H):
     nhits = torch.empty(2 * U, dtype=torch.int32, device=pack2.device)
     if U:
         kernels.launch("chain_search", fm, pack2, vmask, lengths, U, 4 * L4,
-                       mhl, H, hits, nhits)
+                       mhl, H, hits, nhits, variant=chain_variant(fm, lanes=False))
     return hits, nhits
 
 
@@ -120,30 +125,54 @@ def _sort_rows(keys):
     return [k.gather(1, perm) for k in keys]
 
 
-def finalize_units_plain(fm, hits, nhits, nr, mhl, max_entries, k_out):
+def finalize_units_plain(fm, hits, nhits, nr, mhl, max_entries, k_out,
+                         protein=False):
     """Plain twin of finalize_units: device_engine.fused_classify's finalize
     (:211-461) as batched tensor code.  -> packed int32 [Q, 5 + k_out]."""
     dev = hits.device
     hits = hits.long()
     nhits = nhits.long()
     H = hits.shape[1]
-    Q = hits.shape[0] // (2 * nr)
+    lpu = (6 if protein else 2) * nr
+    Q = hits.shape[0] // lpu
     W = U_CAP
+    adj = ADJ_PROTEIN if protein else ADJ
     rowQ = torch.arange(Q, device=dev)
     hmask = torch.arange(H, device=dev)[None, :] < nhits[:, None]
     hl = hits[:, :, 2]
-    lane_score = torch.where(hmask & (hl >= mhl), (hl - ADJ) ** 2, 0).sum(1)
+    lane_score = torch.where(hmask & (hl >= mhl), (hl - adj) ** 2, 0).sum(1)
 
-    f1, r1 = 2 * nr * rowQ, 2 * nr * rowQ + 1
+    if protein:
+        # frame choice per (read, strand): the largest nhits * score, strictly
+        # (the best starts at 0; ties keep the earlier frame)
+        qscore = nhits * lane_score
+
+        def chosen(lane0):
+            best = qscore[lane0].clamp(min=0)
+            tag = torch.zeros_like(lane0)
+            for fr in (1, 2):
+                upd = qscore[lane0 + fr] > best
+                tag = torch.where(upd, fr, tag)
+                best = torch.where(upd, qscore[lane0 + fr], best)
+            return lane0 + tag
+
+        f1, r1 = chosen(lpu * rowQ), chosen(lpu * rowQ + 3)
+        if nr == 2:
+            f2, r2 = chosen(lpu * rowQ + 6), chosen(lpu * rowQ + 9)
+        needs_adjust = torch.zeros(Q, dtype=torch.bool, device=dev)
+    else:
+        f1, r1 = lpu * rowQ, lpu * rowQ + 1
+        if nr == 2:
+            f2, r2 = f1 + 2, f1 + 3
+            needs_adjust = ((nhits[f1] > 0) & (nhits[r1] > 0)) | \
+                ((nhits[f2] > 0) & (nhits[r2] > 0))
+        else:
+            needs_adjust = (nhits[f1] > 0) & (nhits[r1] > 0)
     if nr == 2:
-        f2, r2 = f1 + 2, f1 + 3
         sc_plus = lane_score[f1] + lane_score[r2]
         sc_minus = lane_score[r1] + lane_score[f2]
-        needs_adjust = ((nhits[f1] > 0) & (nhits[r1] > 0)) | \
-            ((nhits[f2] > 0) & (nhits[r2] > 0))
     else:
         sc_plus, sc_minus = lane_score[f1], lane_score[r1]
-        needs_adjust = (nhits[f1] > 0) & (nhits[r1] > 0)
     tp, tm = sc_plus >= sc_minus, sc_minus >= sc_plus
     neg = torch.full_like(f1, -1)
     if nr == 2:
@@ -233,7 +262,7 @@ def finalize_units_plain(fm, hits, nhits, nr, mhl, max_entries, k_out):
     last_of_chain = torch.cat([cb[:, 1:] | ~s_valid[:, 1:], one], 1) & s_valid
     chain_lsum = _seg_cumsum(w_l, cb | ~s_valid)
     chain_score = torch.where(last_of_chain & (chain_lsum >= mhl),
-                              (chain_lsum - ADJ) ** 2, 0)
+                              (chain_lsum - adj) ** 2, 0)
     last_of_rec = torch.cat([rb[:, 1:] | ~s_valid[:, 1:], one], 1) & s_valid
     rec_score = torch.where(last_of_rec, _seg_cumsum(chain_score, rb | ~s_valid), -1)
     rec_hitlen = _seg_cumsum(w_l, rb | ~s_valid)
@@ -266,20 +295,25 @@ def finalize_units_plain(fm, hits, nhits, nr, mhl, max_entries, k_out):
                       sids_out], 1).int()
 
 
-def finalize_units(fm, hits, nhits, nr, mhl, max_entries, k_out):
-    """K3 wrapper: hits int32 [2 nr Q, H, 4], nhits int32 [2 nr Q] ->
-    packed int32 [Q, 5 + k_out]."""
+def finalize_units(fm, hits, nhits, nr, mhl, max_entries, k_out, protein=False):
+    """K3 wrapper: hits int32 [lpu Q, H, 4], nhits int32 [lpu Q] with lpu =
+    2 nr strand lanes a unit (protein: 6 nr frame lanes) -> packed int32
+    [Q, 5 + k_out]."""
     _check(fm, "finalize_units", hits=(hits, torch.int32), nhits=(nhits, torch.int32))
     B, H, four = hits.shape
-    if four != 4 or nhits.shape != (B,) or B % (2 * nr):
-        raise ValueError("finalize_units: want hits [2 nr Q, H, 4], nhits [2 nr Q]")
+    lpu = (6 if protein else 2) * nr
+    if four != 4 or nhits.shape != (B,) or B % lpu:
+        raise ValueError("finalize_units: want hits [%d Q, H, 4], nhits [%d Q]"
+                         % (lpu, lpu))
     if hits.device.type == "cpu":
-        return finalize_units_plain(fm, hits, nhits, nr, mhl, max_entries, k_out)
-    Q = B // (2 * nr)
+        return finalize_units_plain(fm, hits, nhits, nr, mhl, max_entries, k_out,
+                                    protein)
+    Q = B // lpu
     packed = torch.empty(Q, 5 + k_out, dtype=torch.int32, device=hits.device)
     if Q:
         kernels.launch("finalize_units", fm, hits, nhits, Q, nr, H, mhl,
-                       max_entries, k_out, packed)
+                       max_entries, k_out, int(protein), packed,
+                       variant=("protein",) * protein)
     return packed
 
 
@@ -291,23 +325,42 @@ def fused_classify(fm, pack2, vmask, lengths, nr, mhl, H, max_result,
     pack2/vmask/lengths: U = Q * nr packed reads.  Returns a dict of tensors:
     packed [Q, 5 + k_out] (score, second, hitlen, n_best, flags, sids...),
     hits [2U, H, 4], nhits [2U], fb_units, fb_hits, fb_nh and host_blob."""
-    U = pack2.shape[0]
-    Q = U // nr
+    _check_row_budget(pack2.shape[0] // nr, r_cap)
+    hits, nhits = chain_search(fm, pack2, vmask, lengths, mhl, H)
+    return _finish_program(fm, hits, nhits, nr, mhl, max_result * hitk_factor,
+                           k_out, protein=False)
+
+
+def fused_classify_protein(fm, codes, lengths, nr, mhl, H, max_result,
+                           hitk_factor, k_out, r_cap):
+    """The protein device program (device_engine.fused_classify with
+    protein=True).  codes uint8 [6U, L] amino-acid code lanes (255 invalid),
+    per read fwd frames 0..2 then rc frames 0..2, lengths int32 [6U], U =
+    Q * nr.  Returns the tensors of fused_classify, with hits [6U, H, 4]."""
+    _check_row_budget(codes.shape[0] // (6 * nr), r_cap)
+    hits, nhits = chain_search_lanes(fm, codes, lengths, mhl, H)
+    return _finish_program(fm, hits, nhits, nr, mhl, max_result * hitk_factor,
+                           k_out, protein=True)
+
+
+def _check_row_budget(Q, r_cap):
     if r_cap // Q != U_CAP:
         raise ValueError("the per-unit row budget r_cap // Q must be %d" % U_CAP)
-    hits, nhits = chain_search(fm, pack2, vmask, lengths, mhl, H)
-    packed = finalize_units(fm, hits, nhits, nr, mhl, max_result * hitk_factor,
-                            k_out)
+
+
+def _finish_program(fm, hits, nhits, nr, mhl, max_entries, k_out, protein):
+    packed = finalize_units(fm, hits, nhits, nr, mhl, max_entries, k_out, protein)
     # the first FB_CAP flagged units' chains ship with the result: the
     # selection is data movement (nonzero / gather), not a kernel
-    lpu = 2 * nr
+    Q = len(packed)
+    lpu = (6 if protein else 2) * nr
     fb_mask = (packed[:, 4] != 0) | (packed[:, 3] > k_out)
     nfb = min(Q, FB_CAP)
-    fb_units = torch.full((nfb,), -1, dtype=torch.int32, device=pack2.device)
+    fb_units = torch.full((nfb,), -1, dtype=torch.int32, device=hits.device)
     sel = fb_mask.nonzero()[:nfb, 0]
     fb_units[:len(sel)] = sel.int()
     fb_lanes = (lpu * fb_units.clamp(min=0).long()[:, None]
-                + torch.arange(lpu, device=pack2.device)[None, :]).reshape(-1)
+                + torch.arange(lpu, device=hits.device)[None, :]).reshape(-1)
     fb_hits = hits[fb_lanes]
     fb_nh = nhits[fb_lanes]
     host_blob = torch.cat([packed.reshape(-1), fb_units, fb_hits.reshape(-1), fb_nh])

@@ -8,6 +8,9 @@ the flagged units' chains) and formats results.  Units the device flags
 (hit-boundary-adjustment candidates, row-budget overflows, more best seqids
 than it returns) take the exact host path, reusing the device chains, with
 their backward searches (K5) and SA resolves (K2) batched on the device.
+A protein index takes the translated search: the host translates each read
+into six amino-acid code lanes, the device chooses frame and strand, and
+flagged units have no boundary adjustment.
 
 Bit-identical to ClassifierNP / the reference binary; enforced by the golden
 TSV tests.
@@ -20,7 +23,8 @@ import numpy as np
 import torch
 
 from .engine_np import ClassifierNP, ClassifierResult, BWTHit
-from .device_engine import fused_classify, U_CAP
+from .device_engine import fused_classify, fused_classify_protein, U_CAP
+from .translate import translate_frames
 from ..fm.device import TorchFM, resolve_rows, prefix_search
 from ..utils import COMP_TABLE
 
@@ -57,13 +61,10 @@ class ClassifierTorch(ClassifierNP):
     PIPELINE_DEPTH = 8
 
     def __init__(self, fm, taxonomy, param, protein=False, dev=None,
-                 device="cuda"):
-        if protein:
-            raise NotImplementedError(
-                "protein (translated) classification is not ported yet "
-                "(ROADMAP queue 1 item 6)")
-        super().__init__(fm, taxonomy, param, protein=False)
-        self.dev = dev if dev is not None else TorchFM.from_index(fm, device)
+                 device="cuda", serve_layout="plain"):
+        super().__init__(fm, taxonomy, param, protein=protein)
+        self.dev = dev if dev is not None else \
+            TorchFM.from_index(fm, device, serve_layout)
         self.device = self.dev.device
         self.stats = {"fast_units": 0, "fallback_units": 0}
         self._sid_prefix = None
@@ -115,6 +116,31 @@ class ClassifierTorch(ClassifierNP):
         vmask = np.packbits(valid, axis=1, bitorder="little")
         return (pack2, vmask), lens, nr, L
 
+    def _pack_reads_protein(self, queries):
+        """queries -> (amino-acid code lanes [U * 6, L] uint8 with 255 invalid,
+        lane lengths [U * 6] int32, nr, L), U = len(queries) * nr
+        (engine_fused._pack_reads_protein).  Per read the lanes are the fwd
+        frames 0..2, then the frames 0..2 of the reverse complement
+        (TranslatedSearch, Classifier.hpp:451-493).  No padding of the unit
+        count, as in _pack_reads; L rounds to 32 here, not to 64."""
+        nr = 2 if any(q[1] is not None for q in queries) else 1
+        lanes = []
+        for r1, r2 in queries:
+            for raw in (r1,) + ((r2,) if nr == 2 else ()):
+                if raw is None or len(raw) == 0:
+                    lanes.extend([np.zeros(0, np.uint8)] * 6)
+                    continue
+                for strand in (raw, COMP_TABLE[raw][::-1]):
+                    lanes.extend(self.encode[aa] for aa in translate_frames(strand))
+        maxlen = max((len(c) for c in lanes), default=1)
+        L = max(_round_up(max(maxlen, 16), 32), 32)
+        codes = np.full((len(lanes), L), 255, np.uint8)
+        lengths = np.zeros(len(lanes), np.int32)
+        for i, c in enumerate(lanes):
+            codes[i, :len(c)] = c
+            lengths[i] = len(c)
+        return codes, lengths, nr, L
+
     def _upload(self, a):
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type == "cuda":
@@ -122,14 +148,19 @@ class ClassifierTorch(ClassifierNP):
         return t
 
     def _dispatch_fused(self, queries):
-        (pack2, vmask), lengths, nr, L = self._pack_reads(queries)
+        if self.protein:
+            codes, lengths, nr, L = self._pack_reads_protein(queries)
+            program, reads = fused_classify_protein, (self._upload(codes),)
+        else:
+            (pack2, vmask), lengths, nr, L = self._pack_reads(queries)
+            program = fused_classify
+            reads = (self._upload(pack2), self._upload(vmask))
         mhl = self.param.min_hit_len
         H = max(L // (mhl + 1) + 1, 1)
-        out = fused_classify(
-            self.dev, self._upload(pack2), self._upload(vmask),
-            self._upload(lengths), nr, mhl, H, self.param.max_result,
-            self.param.max_result_per_hit_factor, self.K_OUT,
-            len(queries) * self.U_CAP)
+        out = program(
+            self.dev, *reads, self._upload(lengths), nr, mhl, H,
+            self.param.max_result, self.param.max_result_per_hit_factor,
+            self.K_OUT, len(queries) * self.U_CAP)
         return dict(queries=queries, out=out, nr=nr)
 
     def _pull_results(self, out):
@@ -204,7 +235,7 @@ class ClassifierTorch(ClassifierNP):
         """hits_at(lane) -> [(sp, ep, l, off), ...] for the flagged units'
         lanes: from the fb_* arrays shipped in the blob when they cover every
         flagged unit, else one gather of the flagged lanes on the device."""
-        lpu = 2 * nr
+        lpu = (6 if self.protein else 2) * nr
         sel = out["fb_units"][:len(fb_idx)]
         if len(fb_idx) <= len(out["fb_units"]) and np.array_equal(sel, fb_idx):
             hs, ns = out["fb_hits"], out["fb_nh"]
@@ -250,10 +281,43 @@ class ClassifierTorch(ClassifierNP):
     def _finish_fallback_units(self, queries, fb_idx, out, nr):
         """Exact host finalize for flagged units: one prefix_search dispatch
         serves every boundary-adjustment search, one resolve dispatch every
-        SA row."""
+        SA row (protein units have no boundary adjustment)."""
         hits_at = self._fallback_hits_accessor(out, fb_idx, nr)
-        return self._classify_units_batch(
-            self._fallback_unit_hits_dna(queries, fb_idx, hits_at, nr))
+        unit_hits = self._fallback_unit_hits_protein if self.protein \
+            else self._fallback_unit_hits_dna
+        return self._classify_units_batch(unit_hits(queries, fb_idx, hits_at, nr))
+
+    def _fallback_unit_hits_protein(self, queries, fb_idx, hits_at, nr):
+        """Flagged protein units: frame choice, then strand choice, on the
+        host from the device chains (TranslatedSearch, Classifier.hpp:451-493).
+        Returns [(qi, hits, qlen), ...]."""
+        def best_frame(lane0):
+            frames = [hits_at(lane0 + f) for f in range(3)]
+            best, tag = 0, 0
+            for f, fh in enumerate(frames):
+                sc = len(fh) * sum(self.hit_score(h[2]) for h in fh)
+                if sc > best:
+                    best, tag = sc, f
+            return frames[tag]
+
+        res = []
+        for qi in fb_idx:
+            qi = int(qi)
+            r1, r2 = queries[qi]
+            base = 6 * nr * qi
+            plus, minus = best_frame(base), best_frame(base + 3)
+            if r2 is not None and nr == 2:
+                plus = plus + best_frame(base + 9)     # rc frames of r2
+                minus = minus + best_frame(base + 6)   # fwd frames of r2
+            sc_p = sum(self.hit_score(h[2]) for h in plus)
+            sc_m = sum(self.hit_score(h[2]) for h in minus)
+            chosen = [(h, 1) for h in plus] if sc_p >= sc_m else []
+            if sc_m >= sc_p:
+                chosen += [(h, -1) for h in minus]
+            hs = [BWTHit(h[0], h[1], h[2], h[3], s) for h, s in chosen]
+            qlen = len(r1) + (len(r2) if r2 is not None else 0)
+            res.append((qi, hs, qlen))
+        return res
 
     def _fallback_unit_hits_dna(self, queries, fb_idx, hits_at, nr):
         """Flagged units: batched boundary adjustment + strand choice.

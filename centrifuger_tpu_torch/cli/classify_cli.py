@@ -29,8 +29,6 @@ _NOT_PORTED = [
     ("-k 0/--hitk-factor 0 on the card",
      lambda a: a.device != "cpu" and (a.max_result <= 0 or a.hitk_factor <= 0),
      "the non-fused engine (ROADMAP queue 1 item 9)"),
-    ("--serve-layout runblock", lambda a: a.serve_layout != "plain",
-     "the run-block serving layout (ROADMAP queue 1 item 7, kernel K8)"),
     ("--shards", lambda a: a.shards > 1,
      "sharded multi-GPU serving (ROADMAP queue 1 item 10, kernel K10)"),
     ("--read-format", lambda a: a.read_format,
@@ -52,18 +50,15 @@ def log(msg):
 
 
 def make_classifier(fm, tax, param, protein, engine, device="cuda",
-                    no_rowmap=False):
-    if protein:
-        raise NotImplementedError(
-            "protein indexes are not ported yet to centrifuger_tpu_torch "
-            "(ROADMAP queue 1 item 6)")
+                    no_rowmap=False, serve_layout="plain"):
     if engine == "numpy":
         from ..classify.engine_np import ClassifierNP
-        return ClassifierNP(fm, tax, param)
+        return ClassifierNP(fm, tax, param, protein=protein)
     if no_rowmap:
         fm.rowmap = None
     from ..classify.engine import ClassifierTorch
-    return ClassifierTorch(fm, tax, param, device=device)
+    return ClassifierTorch(fm, tax, param, protein=protein, device=device,
+                           serve_layout=serve_layout)
 
 
 def main(argv=None):
@@ -92,7 +87,12 @@ def main(argv=None):
     ap.add_argument("--barcode-translate", default=None)
     ap.add_argument("--engine", choices=["numpy", "jax", "fused"], default="fused",
                     help="compute engine (extension over the reference CLI)")
-    ap.add_argument("--serve-layout", choices=["plain", "runblock"], default="plain")
+    ap.add_argument("--serve-layout", choices=["plain", "runblock"], default="plain",
+                    help="device rank tables of a nucleotide index: plain "
+                         "(512-byte wide rows, decoded from the run-block BWT at "
+                         "load) or runblock (the 84-byte-row mega-table of the "
+                         "run-block BWT, leaner in device memory); a load-time "
+                         "choice that never changes results")
     ap.add_argument("--no-rowmap", action="store_true",
                     help="ignore the rowmap resolve accelerator even if the "
                          "index carries one (SA resolve walks LF instead)")
@@ -138,7 +138,8 @@ def main(argv=None):
         has_mate = True
 
     classifier = make_classifier(fm, tax, param, protein, args.engine,
-                                 device=args.device, no_rowmap=args.no_rowmap)
+                                 device=args.device, no_rowmap=args.no_rowmap,
+                                 serve_layout=args.serve_layout)
     log("Inferred --min-hitlen: %d" % classifier.param.min_hit_len)
 
     writer = ResultWriter()

@@ -1,15 +1,27 @@
-"""Device-resident FM-index (PyTorch) and the K1/K2/K5 kernels' plain twins.
+"""Device-resident FM-index (PyTorch) and the plain twins of the FM kernels.
 
-Port of centrifuger_tpu.fm.device (DeviceFM) for the int32 nucleotide case
-with the plain serving layout.  `TorchFM` holds the index tables as buffers:
+Port of centrifuger_tpu.fm.device (DeviceFM) for int32 indexes.  `TorchFM`
+holds the index tables as buffers and ranks through one of three layouts,
+chosen at load time the way DeviceFM.__init__ does (results never depend on
+the choice):
 
-  rows        int32 [n // 1920 + 1, 128]  the 512-byte wide rank rows, an
-              int32 view of uint32 words:
-              [occ_A, occ_C, occ_G, occ_T, occ_hi, prev_word, w0..w119, pad2]
-  ftab        int32 [2 * 4^pw]  flat interleaved (ftab_start, ftab_len)
-  psum        int32 [5]         F-column partial sums
+  plain     sigma 4.  rows int32 [n // 1920 + 1, 128]: the 512-byte wide rank
+            rows, an int32 view of uint32 words
+            [occ_A, occ_C, occ_G, occ_T, occ_hi, prev_word, w0..w119, pad2]
+  runblock  sigma 4.  mega int32 [R, 21]: indicator rows, then literal rows,
+            then run rows of the run-block BWT (fm/device_fused.py); a rank is
+            the indicator row, then one literal and one run row
+  generic   any sigma (protein).  The run-block BWT as it is stored: the
+            indicator bitvector (TorchBitvector) and the literal and run
+            streams (TorchPacked, 2, 4 or 8 bits a symbol)
+
+and beside them, for every layout,
+
+  ftab        int32 [2 * 2^(code_bits * pw)]  flat interleaved (start, len)
+  psum        int32 [sigma + 1]  F-column partial sums
   sampled_sa  int32             row-sampled SA (sequence ids)
   sel_rows    int32             sorted genome-boundary rows, sel_vals beside
+  end_marker_sa int32           sequence ids of the end-marker rows (protein)
   rowmap      int32 [n]         optional precomputed LF-walk result per row
 
 The kernels (kernels/csrc/*.cu) take these buffers as they are and read the
@@ -24,6 +36,8 @@ import torch
 from torch import nn
 
 from .. import kernels
+from .device_fused import (build_mega_table, IND_OFF, IND_PREV, STREAM_OFF,
+                           STREAM_PREV)
 
 WIDE_BLOCK = 1920   # symbols per wide row
 WIDE_WORDS = 128
@@ -32,8 +46,14 @@ WIDE_OFF = 6        # first data word column
 WIDE_PREV = 5       # previous row's last data word
 WIDE_HI = 4         # packed occ bits 32..39 (int64 indexes only)
 
+OCC_BLOCK = 256     # symbols per occ checkpoint of a packed stream
+RANK_WORDS = 8      # words per rank checkpoint of a bitvector
+SERVE_LAYOUTS = ("plain", "runblock")      # the load-time choice (sigma 4)
+LAYOUTS = SERVE_LAYOUTS + ("generic",)     # the rank layouts of the kernels
+
 INT32_LIMIT = (1 << 31) - 8   # DeviceFM switches to int64 lanes at this n
 _M32 = 0xFFFFFFFF
+_LOW = {2: 0x55555555, 4: 0x11111111, 8: 0x01010101}
 
 
 def resolve_device(device):
@@ -61,6 +81,126 @@ def _popcount32_np(v):
     v = (v & np.uint64(0x33333333)) + ((v >> np.uint64(2)) & np.uint64(0x33333333))
     v = (v + (v >> np.uint64(4))) & np.uint64(0x0F0F0F0F)
     return ((v * np.uint64(0x01010101)) & np.uint64(_M32)) >> np.uint64(24)
+
+
+def _swar_match(w, c, width):
+    """uint32 words (as int64) -> the low bit of every symbol slot equal to c."""
+    if width == 2:
+        x = ~(w ^ (c * 0x55555555)) & _M32
+        return x & (x >> 1) & 0x55555555
+    if width == 4:
+        x = ~(w ^ (c * 0x11111111)) & _M32
+        x = x & (x >> 1)
+        x = x & (x >> 2)
+        return x & 0x11111111
+    if width == 8:
+        x = w ^ (c * 0x01010101)
+        z = x | (x >> 4)
+        z = z | (z >> 2)
+        z = z | (z >> 1)
+        return ~z & 0x01010101
+    raise ValueError("unsupported symbol width %d" % width)
+
+
+def _low_bits(nbits):
+    """int64 mask of the low nbits (0..32) bits."""
+    return (torch.ones_like(nbits) << nbits) - 1
+
+
+def _ceil_div(a, b):
+    return torch.div(a + (b - 1), b, rounding_mode="floor")
+
+
+def _buf(module, name, arr, device):
+    module.register_buffer(
+        name, None if arr is None else
+        torch.from_numpy(np.ascontiguousarray(arr)).to(device))
+
+
+def _no_account(nbytes):
+    pass
+
+
+def _on(mask, fn, *args):
+    """fn(*args) on the lanes of mask, 0 elsewhere.  The other lanes read no
+    table, so the traffic account holds only what a lane's own branch reads,
+    as one thread of the kernels does."""
+    out = torch.zeros_like(args[0])
+    idx = mask.nonzero()[:, 0]
+    if len(idx):
+        out[idx] = fn(*(a[idx] for a in args))
+    return out
+
+
+class TorchPacked(nn.Module):
+    """Device mirror of a PackedSeq (DevicePacked): words int32
+    [nblk, 256 / per_word] (uint32 bits), occ int32 [nblk, sigma] counts
+    before each 256-symbol block."""
+
+    def __init__(self, words, occ, width, n, device, account=_no_account):
+        super().__init__()
+        self.n = int(n)
+        self.width = int(width)
+        self.per_word = 32 // self.width
+        self.wpb = OCC_BLOCK // self.per_word
+        nblk = occ.shape[0]
+        padded = np.zeros(nblk * self.wpb, dtype=np.uint32)
+        padded[:len(words)] = words
+        _buf(self, "words", padded.reshape(nblk, self.wpb).view(np.int32), device)
+        _buf(self, "occ", np.asarray(occ).astype(np.int32), device)
+        self.account = account
+
+    def rank_inclusive(self, c, idx):
+        """Count of c in [0..idx]; idx in range."""
+        pos1 = idx + 1
+        blk = torch.div(pos1, OCC_BLOCK, rounding_mode="floor")
+        rem = pos1 - blk * OCC_BLOCK
+        self.account(lambda: (4 + 4 * _ceil_div(rem, self.per_word)).sum())
+        rows = self.words[blk].long() & _M32
+        k = torch.arange(self.wpb, device=idx.device)[None, :]
+        take = (rem[:, None] - k * self.per_word).clamp(0, self.per_word)
+        m = _swar_match(rows, c[:, None], self.width) & \
+            _low_bits(take * self.width) & _LOW[self.width]
+        return self.occ.long()[blk, c] + _popcount32(m).sum(dim=1)
+
+    def access(self, idx):
+        self.account(lambda: 4 * idx.numel())
+        widx = torch.div(idx, self.per_word, rounding_mode="floor")
+        w = self.words.reshape(-1)[widx].long() & _M32
+        return (w >> (torch.remainder(idx, self.per_word) * self.width)) & \
+            ((1 << self.width) - 1)
+
+
+class TorchBitvector(nn.Module):
+    """Device mirror of a Bitvector (DeviceBitvector): words int32 [ngrp, 8]
+    with one zero group appended, cum int32 ones before each group."""
+
+    def __init__(self, words, cum, n, device, account=_no_account):
+        super().__init__()
+        self.n = int(n)
+        nwords = len(words)
+        # + 1 zero group: a rank at pos1 == n reads a whole group safely
+        ngrp = (nwords + RANK_WORDS - 1) // RANK_WORDS + 1
+        padded = np.zeros(ngrp * RANK_WORDS, dtype=np.uint32)
+        padded[:nwords] = words
+        _buf(self, "words", padded.reshape(ngrp, RANK_WORDS).view(np.int32), device)
+        _buf(self, "cum", np.asarray(cum).astype(np.int32), device)
+        self.account = account
+
+    def rank1_inclusive(self, idx):
+        pos1 = idx + 1
+        wi = pos1 >> 5
+        grp = torch.div(wi, RANK_WORDS, rounding_mode="floor")
+        self.account(lambda: (4 + 4 * _ceil_div(pos1 - grp * (32 * RANK_WORDS), 32)).sum())
+        rows = self.words[grp].long() & _M32
+        j = grp[:, None] * RANK_WORDS + torch.arange(RANK_WORDS, device=idx.device)[None, :]
+        cnt = torch.where(j < wi[:, None], _popcount32(rows), 0).sum(dim=1)
+        tw = rows.gather(1, (wi - grp * RANK_WORDS).clamp(0, RANK_WORDS - 1)[:, None])[:, 0]
+        return self.cum.long()[grp] + cnt + _popcount32(tw & _low_bits(pos1 & 31))
+
+    def access(self, idx):
+        self.account(lambda: 4 * idx.numel())
+        return ((self.words.reshape(-1)[idx >> 5].long() & _M32) >> (idx & 31)) & 1
 
 
 def build_wide_rows(bwt_codes):
@@ -96,8 +236,10 @@ def build_wide_rows(bwt_codes):
 
 
 def fm_arrays(fm):
-    """The numpy fields TorchFM needs from an FMIndexData (either package's:
-    the on-disk format is shared)."""
+    """What TorchFM needs from an FMIndexData (either package's: the on-disk
+    format is shared): scalars, numpy arrays, and `bwt_codes`, a callable that
+    decodes the run-block BWT (only the plain layout calls it)."""
+    bwt = fm.bwt
     return dict(
         n=fm.n, sigma=fm.sigma, code_bits=fm.code_bits,
         precompute_width=fm.precompute_width, first_isa=fm.first_isa,
@@ -105,45 +247,80 @@ def fm_arrays(fm):
         adjusted_sa0=fm.adjusted_sa0, has_end_marker=fm.has_end_marker,
         psum=fm.psum, ftab_start=fm.ftab_start, ftab_len=fm.ftab_len,
         sampled_sa=fm.sampled_sa, selected_rows=fm.selected_rows,
-        selected_vals=fm.selected_vals, rowmap=getattr(fm, "rowmap", None),
-        bwt=fm.bwt.decode())
+        selected_vals=fm.selected_vals, end_marker_sa=fm.end_marker_sa,
+        rowmap=getattr(fm, "rowmap", None), bwt_codes=bwt.decode,
+        bwt_b=bwt.b, bwt_n=bwt.n,
+        ind_words=bwt.indicator.words, ind_cum=bwt.indicator.cum,
+        ind_n=bwt.indicator.n,
+        lit_words=bwt.lit.words, lit_occ=bwt.lit.occ, lit_width=bwt.lit.width,
+        lit_n=bwt.lit.n,
+        run_words=bwt.run.words, run_occ=bwt.run.occ, run_width=bwt.run.width,
+        run_n=bwt.run.n)
 
 
 class TorchFM(nn.Module):
-    """Device mirror of FMIndexData (int32 nucleotide, plain wide rows)."""
+    """Device mirror of FMIndexData (int32) with the kernels' plain twins."""
 
-    def __init__(self, fields, device="cuda"):
+    def __init__(self, fields, device="cuda", serve_layout="plain",
+                 _generic=False):
+        """`_generic` puts a sigma-4 index on the generic layout too, which no
+        entry point does: the tests hold the 2-bit streams to DeviceFM's
+        run-block mirrors that way."""
         super().__init__()
         device = resolve_device(device)
+        if serve_layout not in SERVE_LAYOUTS:
+            raise ValueError("serve_layout must be one of %s" % (SERVE_LAYOUTS,))
         n = int(fields["n"])
-        if int(fields["sigma"]) != 4 or fields["has_end_marker"]:
-            raise NotImplementedError(
-                "protein / end-marker indexes are not ported yet "
-                "(ROADMAP queue 1 item 6: generic run-block rank K7, eager-ftab "
-                "chain K6)")
         if n >= INT32_LIMIT:
             raise NotImplementedError(
                 "indexes with n >= 2^31 - 8 need int64 lanes, not ported yet "
                 "(ROADMAP queue 1 item 8, kernel K9)")
         self.n = n
+        self.sigma = int(fields["sigma"])
+        # the fused-row layouts hold 2-bit symbols; everything else ranks
+        # through the run-block mirrors (DeviceFM.fast)
+        self.layout = serve_layout if self.sigma == 4 and not _generic \
+            else "generic"
         self.code_bits = int(fields["code_bits"])
         self.pw = int(fields["precompute_width"])
-        if self.code_bits * self.pw + 9 > 31:
-            raise NotImplementedError(
-                "code_bits*pw + 9 > 31 needs the eager-ftab chain (K6), not "
-                "ported yet")
         self.first_isa = int(fields["first_isa"])
         self.last_chr = int(fields["last_chr"])
         self.sample_rate = int(fields["sample_rate"])
         self.adjusted_sa0 = int(fields["adjusted_sa0"])
         self.ftab_size = len(fields["ftab_len"])
+        self.b = int(fields["bwt_b"])
+        self.b_lt_n = self.b < int(fields["bwt_n"])
+        self.lit_n = int(fields["lit_n"])
+        self.run_n = int(fields["run_n"])
+        # bytes of index tables the plain versions read, when set to an int:
+        # the least traffic a kernel doing the same work must move
+        self.traffic = None
 
         def buf(name, arr):
-            self.register_buffer(
-                name, None if arr is None else
-                torch.from_numpy(np.ascontiguousarray(arr)).to(device))
+            _buf(self, name, arr, device)
 
-        buf("rows", build_wide_rows(fields["bwt"]).view(np.int32))
+        rows = mega = None
+        self.ind = self.lit = self.run = None
+        self.m_lit = self.m_run = 0
+        if self.layout == "plain":
+            rows = build_wide_rows(fields["bwt_codes"]()).view(np.int32)
+        elif self.layout == "runblock":
+            table, _, self.m_lit, self.m_run = build_mega_table(fields)
+            mega = table.view(np.int32)
+        else:
+            if int(fields["lit_width"]) != int(fields["run_width"]):
+                raise ValueError(
+                    "the literal and the run stream differ in symbol width "
+                    "(%d and %d bits): the kernels read both with one width"
+                    % (fields["lit_width"], fields["run_width"]))
+            self.ind = TorchBitvector(fields["ind_words"], fields["ind_cum"],
+                                      fields["ind_n"], device, self.account)
+            self.lit = TorchPacked(fields["lit_words"], fields["lit_occ"],
+                                   fields["lit_width"], self.lit_n, device, self.account)
+            self.run = TorchPacked(fields["run_words"], fields["run_occ"],
+                                   fields["run_width"], self.run_n, device, self.account)
+        buf("rows", rows)
+        buf("mega", mega)
         buf("ftab", np.stack([fields["ftab_start"], fields["ftab_len"]],
                              axis=1).astype(np.int32).reshape(-1))
         buf("psum", np.asarray(fields["psum"]).astype(np.int32))
@@ -153,33 +330,30 @@ class TorchFM(nn.Module):
         buf("sel_rows", np.asarray(sel).astype(np.int32) if has_sel else None)
         buf("sel_vals", np.asarray(fields["selected_vals"]).astype(np.int32)
             if has_sel else None)
+        end = fields["end_marker_sa"] if fields["has_end_marker"] else None
+        buf("end_marker_sa", None if end is None else np.asarray(end).astype(np.int32))
         rowmap = fields["rowmap"]
         buf("rowmap", None if rowmap is None else
             np.asarray(rowmap).astype(np.int32))
-        # bytes of index tables the plain versions read, when set to an int:
-        # the least traffic a kernel doing the same work must move
-        self.traffic = None
 
     def account(self, nbytes):
-        """Add nbytes (an int or a 0-d tensor) when accounting is on."""
+        """Add nbytes() (an int or a 0-d tensor) when accounting is on."""
         if self.traffic is not None:
-            self.traffic += int(nbytes)
-
-    def account_ranks(self, pos):
-        """Count the table words ranks at `pos` read: the occ word and the
-        data words up to pos within its wide row."""
-        if self.traffic is not None and len(pos):
-            upto = torch.remainder(pos + 1, WIDE_BLOCK)
-            self.account((4 + 4 * torch.div(upto + 15, 16, rounding_mode="floor"))
-                         .sum())
+            self.traffic += int(nbytes())
 
     @classmethod
-    def from_index(cls, fm, device="cuda"):
-        return cls(fm_arrays(fm), device)
+    def from_index(cls, fm, device="cuda", serve_layout="plain"):
+        return cls(fm_arrays(fm), device, serve_layout)
 
     @property
     def device(self):
-        return self.rows.device
+        return self.psum.device
+
+    @property
+    def wide_ftab(self):
+        """The ftab key and the per-position fields no longer pack into 31
+        bits: DeviceFM._chain_search_impl then takes the eager-ftab chain."""
+        return self.code_bits * self.pw + 9 > 31
 
     # ------------------------------------------------ wide-row primitives
     # Plain (batched tensor) versions of the __device__ functions in
@@ -187,6 +361,8 @@ class TorchFM(nn.Module):
 
     def _row_words(self, pos):
         """uint32 words (as int64) of the wide row holding pos's rank."""
+        self.account(lambda: (4 + 4 * _ceil_div(
+            torch.remainder(pos + 1, WIDE_BLOCK), 16)).sum())
         return self.rows[torch.div(pos + 1, WIDE_BLOCK,
                                    rounding_mode="floor")].long() & _M32
 
@@ -194,13 +370,11 @@ class TorchFM(nn.Module):
     def _prefix_count(row, c, pos1):
         """Count symbol c in the first pos1 % 1920 slots of each row."""
         w = row[:, WIDE_OFF:WIDE_OFF + WIDE_DATA]
-        x = ~(w ^ (c * 0x55555555)[:, None]) & _M32
-        m = x & (x >> 1) & 0x55555555
+        m = _swar_match(w, c[:, None], 2)
         upto = torch.remainder(pos1, WIDE_BLOCK)
         j = torch.arange(WIDE_DATA, device=row.device)
         nb = (upto[:, None] - 16 * j[None, :]).clamp(0, 16) * 2
-        mask = (torch.ones_like(nb) << nb) - 1
-        return _popcount32(m & mask).sum(dim=1)
+        return _popcount32(m & _low_bits(nb)).sum(dim=1)
 
     @staticmethod
     def _sym(row, pos):
@@ -213,18 +387,161 @@ class TorchFM(nn.Module):
                         row.gather(1, (WIDE_OFF + widx)[:, None])[:, 0])
         return (w >> ((pos & 15) * 2)) & 3
 
-    def rank_sym(self, c, pos):
-        """(BWT rank_inclusive(c, pos), stored symbol at pos); pos >= -1,
-        pos = -1 gives rank 0 (DeviceFM._plain_rank_sym)."""
+    def _plain_rank_sym(self, c, pos):
         row = self._row_words(pos)
         occ = row.gather(1, c[:, None])[:, 0]
         rank = torch.where(pos < 0, torch.zeros_like(pos),
                            occ + self._prefix_count(row, c, pos + 1))
         return rank, self._sym(row, pos)
 
+    def _plain_lf(self, p):
+        """LF from one wide row (DeviceFM._plain_lf)."""
+        row = self._row_words(p)
+        sym = self._sym(row, p)
+        rank = row.gather(1, sym[:, None])[:, 0] + \
+            self._prefix_count(row, sym, p + 1)
+        corr = ((sym == self.last_chr) & (p < self.first_isa)).long()
+        return self.psum.long()[sym] + rank + corr - 1
+
+    # --------------------------------------------- mega-table primitives
+    # kernels/csrc/rank_mega.cuh
+
+    def _stream_rank_sym(self, off, c, spos):
+        """(rank_inclusive(c, spos), symbol at spos) from the stream row of the
+        mega-table that holds spos's rank; spos >= -1, -1 gives rank 0."""
+        pos1 = spos + 1
+        upto = pos1 & 255
+        self.account(lambda: (4 + 4 * _ceil_div(upto, 16)).sum())
+        row = self.mega[off + (pos1 >> 8)].long() & _M32
+        w = row[:, STREAM_OFF:STREAM_OFF + 16]
+        j = torch.arange(16, device=spos.device)[None, :]
+        nb = (upto[:, None] - 16 * j).clamp(0, 16) * 2
+        cnt = _popcount32(_swar_match(w, c[:, None], 2) & _low_bits(nb)).sum(dim=1)
+        rank = torch.where(spos < 0, 0, row.gather(1, c[:, None])[:, 0] + cnt)
+        in_row = spos - ((pos1 >> 8) << 8)
+        sw = torch.where(in_row < 0, row[:, STREAM_PREV],
+                         w.gather(1, (in_row >> 4).clamp(min=0)[:, None])[:, 0])
+        return rank, (sw >> ((spos & 15) * 2)) & 3
+
+    def _runblock_rank_sym(self, c, pos):
+        """DeviceFM._runblock_rank_sym: the indicator row, then the literal row
+        and the run row."""
+        b = self.b
+        posc = pos.clamp(min=0)
+        bi = torch.div(posc, b, rounding_mode="floor")
+        ipos1 = bi + 1
+        within = ipos1 & 255
+        self.account(lambda: (4 + 4 * _ceil_div(within, 32)).sum())
+        irow = self.mega[ipos1 >> 8].long() & _M32
+        iw8 = irow[:, IND_OFF:IND_OFF + 8]
+        j = torch.arange(8, device=pos.device)[None, :]
+        take = (within[:, None] - 32 * j).clamp(0, 32)
+        r1 = irow[:, 0] + _popcount32(iw8 & _low_bits(take)).sum(dim=1)
+        iin_row = bi - ((ipos1 >> 8) << 8)
+        iw = torch.where(iin_row < 0, irow[:, IND_PREV],
+                         iw8.gather(1, (iin_row >> 5).clamp(min=0)[:, None])[:, 0])
+        typ = (iw >> (bi & 31)) & 1
+        ranki = torch.where(typ == 1, r1, bi + 1 - r1) if self.b_lt_n \
+            else torch.ones_like(bi)
+        other = bi + 1 - ranki
+        is_lit = typ == 0
+        inb = torch.remainder(posc, b)
+        lit_pos = torch.where(is_lit, (ranki - 1) * b + inb, other * b - 1)
+        run_pos = torch.where(is_lit, other - 1, ranki - 1)
+        lit_rank, lit_sym = self._stream_rank_sym(self.m_lit, c, lit_pos)
+        run_rank, run_sym = self._stream_rank_sym(self.m_run, c, run_pos)
+        run_part = torch.where(run_sym == c, (run_rank - 1) * b + inb + 1, run_rank * b)
+        ret = torch.where(is_lit, lit_rank + run_rank * b, run_part + lit_rank)
+        return torch.where(pos < 0, 0, ret), torch.where(is_lit, lit_sym, run_sym)
+
+    # ---------------------------------------------- run-block primitives
+    # kernels/csrc/rank_runblock.cuh
+
+    def _lit_rank(self, c, pos):
+        if self.lit_n == 0:
+            return torch.zeros_like(pos)
+        return _on(pos >= 0, self.lit.rank_inclusive, c,
+                   pos.clamp(max=self.lit_n - 1))
+
+    def _run_rank(self, c, pos):
+        if self.run_n == 0:
+            return torch.zeros_like(pos)
+        return _on(pos >= 0, self.run.rank_inclusive, c,
+                   pos.clamp(max=self.run_n - 1))
+
+    def bwt_rank(self, c, idx):
+        """Sequence_RunBlock::Rank (DeviceFM.bwt_rank), clips included;
+        idx in [0, n - 1].  DeviceFM evaluates both block types for every
+        lane and selects; here a lane reads only its own type's terms."""
+        b = self.b
+        bi = torch.div(idx, b, rounding_mode="floor")
+        typ = self.ind.access(bi)
+        if self.b_lt_n:
+            r1 = self.ind.rank1_inclusive(bi)
+            ranki = torch.where(typ == 1, r1, bi + 1 - r1)
+        else:
+            ranki = torch.ones_like(idx)
+        other = bi + 1 - ranki
+        inb = torch.remainder(idx, b)
+        lit = typ == 0
+        crossed = other != 0
+        ret_lit = _on(lit, self._lit_rank, c, (ranki - 1) * b + inb) + \
+            _on(lit & crossed, self._run_rank, c, other - 1) * b
+        ret_run = _on(~lit & crossed, self._lit_rank, c, other * b - 1)
+        if self.run_n:
+            rb_rank = _on(~lit, self._run_rank, c, ranki - 1)
+            in_run = _on(~lit, self.run.access,
+                         (ranki - 1).clamp(0, self.run_n - 1)) == c
+            ret_run = ret_run + torch.where(
+                in_run, (rb_rank - 1) * b + inb + 1, rb_rank * b)
+        return torch.where(lit, ret_lit, ret_run)
+
+    def bwt_access(self, idx):
+        """Sequence_RunBlock::Access (DeviceFM.bwt_access)."""
+        b = self.b
+        bi = torch.div(idx, b, rounding_mode="floor")
+        lit = self.ind.access(bi) == 0
+        r1 = self.ind.rank1_inclusive(bi)
+        lit_idx = idx - b * r1
+        run_idx = torch.div(idx - b * (bi + 1 - r1), b, rounding_mode="floor")
+        lit_v = _on(lit, self.lit.access, lit_idx.clamp(0, max(self.lit_n - 1, 0))) \
+            if self.lit_n else torch.zeros_like(idx)
+        run_v = _on(~lit, self.run.access, run_idx.clamp(0, max(self.run_n - 1, 0))) \
+            if self.run_n else torch.zeros_like(idx)
+        return torch.where(lit, lit_v, run_v)
+
+    def rank(self, c, p, inclusive):
+        """FMIndex::Rank with the displaced-last-char correction
+        (DeviceFM.rank); generic layout."""
+        if inclusive:
+            r = self.bwt_rank(c, p)
+            corr = (c == self.last_chr) & (p < self.first_isa)
+        else:
+            r = _on(p > 0, self.bwt_rank, c, p - 1)
+            corr = (c == self.last_chr) & (p <= self.first_isa)
+        return r + corr.long()
+
+    # ------------------------------------------- the layouts' common face
+
+    def rank_sym(self, c, pos):
+        """(BWT rank_inclusive(c, pos), stored symbol at pos); pos >= -1,
+        pos = -1 gives rank 0 (DeviceFM._fused_rank_sym; on the generic layout
+        bwt_rank and bwt_access)."""
+        if self.layout == "plain":
+            return self._plain_rank_sym(c, pos)
+        if self.layout == "runblock":
+            return self._runblock_rank_sym(c, pos)
+        return _on(pos >= 0, self.bwt_rank, c, pos), self.bwt_access(pos.clamp(min=0))
+
     def backward_extend(self, c, sp, ep):
-        """FMIndex::BackwardExtend (DeviceFM.backward_extend, plain branch)."""
+        """FMIndex::BackwardExtend (DeviceFM.backward_extend)."""
         off = self.psum.long()[c]
+        if self.layout == "generic":
+            nsp = off + self.rank(c, sp, inclusive=False)
+            same = sp == ep
+            r_ep = _on(~same, lambda cc, e: self.rank(cc, e, inclusive=True), c, ep)
+            acc = _on(same, self.bwt_access, ep)
+            return nsp, torch.where(same, nsp - (acc != c).long(), off + r_ep - 1)
         r_sp, _ = self.rank_sym(c, sp - 1)
         r_ep, sym_ep = self.rank_sym(c, ep)
         is_last = c == self.last_chr
@@ -234,27 +551,33 @@ class TorchFM(nn.Module):
         return nsp, nep
 
     def lf(self, p):
-        """LF-mapping of rows p >= 0 from one wide row (DeviceFM._plain_lf)."""
-        row = self._row_words(p)
-        sym = self._sym(row, p)
-        rank = row.gather(1, sym[:, None])[:, 0] + \
-            self._prefix_count(row, sym, p + 1)
-        corr = ((sym == self.last_chr) & (p < self.first_isa)).long()
-        return self.psum.long()[sym] + rank + corr - 1
+        """LF-mapping of rows p >= 0 (DeviceFM.lf)."""
+        if self.layout == "plain":
+            return self._plain_lf(p)
+        if self.layout == "runblock":
+            # the symbol first (the rank of a dummy c is discarded)
+            _, sym = self.rank_sym(torch.zeros_like(p), p)
+            r, _ = self.rank_sym(sym, p)
+            corr = ((sym == self.last_chr) & (p < self.first_isa)).long()
+            return self.psum.long()[sym] + r + corr - 1
+        c = self.bwt_access(p)
+        return self.psum.long()[c] + self.rank(c, p, inclusive=True) - 1
 
     def _sel_lookup(self, rows):
         """(row is a selected row, its position in sel_rows)."""
-        if self.sel_rows is None:
-            return torch.zeros_like(rows, dtype=torch.bool), rows
         sel = self.sel_rows.long()
         pos = torch.searchsorted(sel, rows).clamp(max=len(sel) - 1)
         return sel[pos] == rows, pos
 
     def stored_here(self, rows):
         """Rows whose SA value is stored (DeviceFM._sample_stored_here)."""
-        return (rows == self.first_isa) | \
-            (torch.remainder(rows, self.sample_rate) == 0) | \
-            self._sel_lookup(rows)[0]
+        found = (rows == self.first_isa) | \
+            (torch.remainder(rows, self.sample_rate) == 0)
+        if self.sel_rows is not None:
+            found = found | self._sel_lookup(rows)[0]
+        elif self.end_marker_sa is not None:
+            found = found | (rows < len(self.end_marker_sa))
+        return found
 
     def sampled_value(self, rows):
         """Stored value of stored rows (DeviceFM.get_sampled_sa), else 0."""
@@ -264,15 +587,63 @@ class TorchFM(nn.Module):
         val = torch.where(samp, self.sampled_sa.long()[
             slot.clamp(0, len(self.sampled_sa) - 1)], torch.zeros_like(rows))
         val = torch.where(first, torch.full_like(rows, self.adjusted_sa0), val)
-        is_sel, pos = self._sel_lookup(rows)
         if self.sel_rows is not None:
+            is_sel, pos = self._sel_lookup(rows)
             val = torch.where(~first & ~samp & is_sel,
                               self.sel_vals.long()[pos], val)
+        elif self.end_marker_sa is not None:
+            m = len(self.end_marker_sa)
+            val = torch.where(~first & ~samp & (rows < m),
+                              self.end_marker_sa.long()[rows.clamp(0, m - 1)], val)
         return val
 
     def ftab_entry(self, kmer):
-        """(ftab_start, ftab_len) of packed pw-mers."""
+        """(ftab_start, ftab_len) of packed pw-mers, the key clipped to the
+        table."""
+        kmer = kmer.clamp(0, self.ftab_size - 1)
         return self.ftab.long()[2 * kmer], self.ftab.long()[2 * kmer + 1]
+
+
+# ------------------------------------------- rank, extend, LF: the wrappers
+
+def _probe(fm, mode, a, b, c):
+    M = len(a)
+    out = torch.empty(2, M, dtype=torch.int32, device=a.device)
+    if M:
+        kernels.launch("rank_probe", fm, mode, a, b, c, M, out[0], out[1])
+    return out
+
+
+def rank_sym(fm, c, pos):
+    """Wrapper of the layouts' rank (DeviceFM._fused_rank_sym / bwt_rank +
+    bwt_access): c, pos int32 [M], pos >= -1 -> int32 (rank, symbol)."""
+    _check(fm, "rank_sym", c=(c, torch.int32), pos=(pos, torch.int32))
+    if c.device.type == "cpu":
+        r, s = fm.rank_sym(c.long(), pos.long())
+        return r.int(), s.int()
+    out = _probe(fm, 0, c, pos, pos)
+    return out[0], out[1]
+
+
+def backward_extend(fm, c, sp, ep):
+    """Wrapper of BackwardExtend (DeviceFM.backward_extend): int32 [M] each,
+    0 <= sp <= ep < n -> int32 (nsp, nep)."""
+    _check(fm, "backward_extend", c=(c, torch.int32), sp=(sp, torch.int32),
+           ep=(ep, torch.int32))
+    if c.device.type == "cpu":
+        nsp, nep = fm.backward_extend(c.long(), sp.long(), ep.long())
+        return nsp.int(), nep.int()
+    out = _probe(fm, 1, c, sp, ep)
+    return out[0], out[1]
+
+
+def lf(fm, p):
+    """Wrapper of the LF-mapping (DeviceFM.lf): p int32 [M] in [0, n) ->
+    int32 [M]."""
+    _check(fm, "lf", p=(p, torch.int32))
+    if p.device.type == "cpu":
+        return fm.lf(p.long()).int()
+    return _probe(fm, 2, p, p, p)[0]
 
 
 # ------------------------------------------------------------ read tables
@@ -300,11 +671,26 @@ def _read_tables(codes, pw, bits):
     return kmer, tail
 
 
+def _extend_lanes(fm, which, c, sp, ep):
+    """BackwardExtend on the lanes `which` only; (1, 0), an empty range,
+    elsewhere."""
+    nsp, nep = torch.ones_like(sp), torch.zeros_like(ep)
+    idx = which.nonzero()[:, 0]
+    if len(idx):
+        nsp[idx], nep[idx] = fm.backward_extend(c[idx], sp[idx], ep[idx])
+    return nsp, nep
+
+
 # ------------------------------------------------------ K1: chain search
 
 def chain_search_lanes_plain(fm, codes, lengths, mhl, H):
-    """Semi-maximal exact-match chains per strand lane: the START/EXTEND
-    state machine of DeviceFM._chain_search_lazyftab_impl, in lockstep.
+    """Semi-maximal exact-match chains per lane: the START/EXTEND state
+    machine of DeviceFM._chain_search_lazyftab_impl and
+    _chain_search_ftab_impl, in lockstep.  The two JAX programs differ in how
+    they ship the START outcomes to the loop (one packed int32 word while
+    code_bits*pw + 9 <= 31, separate precomputed tables beyond); the values
+    are the same, and this version keeps the k-mer in an int64, so it has no
+    pack limit.
 
     codes [B, L] (255 invalid), lengths [B] -> (hits int32 [B, H, 4] of
     (sp, ep, l, off), nhits int32 [B])."""
@@ -342,12 +728,8 @@ def chain_search_lanes_plain(fm, codes, lengths, mhl, H):
         start_l = torch.where(ftab_ok, pw, lfail)
 
         c_invalid = c == 255
-        fm.account(8 * (start & (tv >= pw)).sum())
-        ext = extend & ~c_invalid
-        fm.account_ranks(torch.cat([sp[ext] - 1, ep[ext]]))
-        nsp, nep = fm.backward_extend(
-            torch.where(extend & ~c_invalid, c, 0),
-            torch.where(extend, sp, 0), torch.where(extend, ep, 0))
+        fm.account(lambda: 8 * (start & (tv >= pw)).sum())
+        nsp, nep = _extend_lanes(fm, extend & ~c_invalid, c, sp, ep)
         ext_fail = extend & (c_invalid | (nsp > nep))
         ext_ok = extend & ~ext_fail
         new_l = l + 1
@@ -377,6 +759,31 @@ def chain_search_lanes_plain(fm, codes, lengths, mhl, H):
     return hits.int(), nh.int()
 
 
+def chain_search_lanes(fm, codes, lengths, mhl, H):
+    """K1 wrapper for ready-made code lanes (the protein path's six frames a
+    read): codes uint8 [B, L] (255 invalid), lengths int32 [B] -> (hits int32
+    [B, H, 4] of (sp, ep, l, off), nhits int32 [B])."""
+    _check(fm, "chain_search_lanes", codes=(codes, torch.uint8),
+           lengths=(lengths, torch.int32))
+    if codes.dim() != 2 or lengths.shape != (codes.shape[0],):
+        raise ValueError("chain_search_lanes: want codes [B, L] and lengths [B]")
+    if codes.device.type == "cpu":
+        return chain_search_lanes_plain(fm, codes, lengths, mhl, H)
+    B, L = codes.shape
+    hits = torch.empty(B, H, 4, dtype=torch.int32, device=codes.device)
+    nhits = torch.empty(B, dtype=torch.int32, device=codes.device)
+    if B:
+        kernels.launch("chain_search_lanes", fm, codes, lengths, B, L, mhl, H,
+                       hits, nhits, variant=chain_variant(fm, lanes=True))
+    return hits, nhits
+
+
+def chain_variant(fm, lanes):
+    """The chain kernel's instantiation beside the layout, as the launch
+    counts name it: the code source and the ftab key."""
+    return ("lanes",) * lanes + ("wideftab",) * fm.wide_ftab
+
+
 # ------------------------------------------------------------ K2: resolve
 
 def resolve_rows_plain(fm, rows, valid):
@@ -385,7 +792,7 @@ def resolve_rows_plain(fm, rows, valid):
     int32 [M] (0 on invalid lanes)."""
     rows = rows.long()
     if fm.rowmap is not None:
-        fm.account(4 * valid.sum())
+        fm.account(lambda: 4 * valid.sum())
         val = fm.rowmap.long()[rows.clamp(0, fm.n - 1)]
     else:
         cur = torch.where(valid, rows, torch.zeros_like(rows))
@@ -395,9 +802,8 @@ def resolve_rows_plain(fm, rows, valid):
             if not bool(pend.any()):
                 break
             idx = pend.nonzero()[:, 0]
-            fm.account_ranks(cur[idx])
             cur[idx] = fm.lf(cur[idx])
-        fm.account(4 * valid.sum())
+        fm.account(lambda: 4 * valid.sum())
         val = fm.sampled_value(cur)
     return torch.where(valid, val, torch.zeros_like(val)).int()
 
@@ -434,7 +840,7 @@ def prefix_search_plain(fm, codes, ms):
     short_tail = ~too_short & (tv < pw)
     fsp, fl = fm.ftab_entry(kmer[lane, msc])
     ftab_empty = ~too_short & ~short_tail & (fl == 0)
-    fm.account(8 * (~too_short & ~short_tail).sum())
+    fm.account(lambda: 8 * (~too_short & ~short_tail).sum())
     l = torch.where(too_short, 0, torch.where(
         short_tail, tv, torch.where(ftab_empty, pw - 1, pw)))
     running = ~too_short & ~short_tail & ~ftab_empty
@@ -445,13 +851,8 @@ def prefix_search_plain(fm, codes, ms):
         if not bool(act.any()):
             break
         c = codes[lane, (ms - 1 - l).clamp(0, L - 1)]
-        c_invalid = c == 255
-        ext = act & ~c_invalid
-        fm.account_ranks(torch.cat([sp[ext] - 1, ep[ext]]))
-        nsp, nep = fm.backward_extend(torch.where(act & ~c_invalid, c, 0),
-                                      torch.where(act, sp, 0),
-                                      torch.where(act, ep, 0))
-        ok = act & ~c_invalid & (nsp <= nep)
+        nsp, nep = _extend_lanes(fm, act & (c != 255), c, sp, ep)
+        ok = act & (nsp <= nep)
         sp = torch.where(ok, nsp, sp)
         ep = torch.where(ok, nep, ep)
         l = torch.where(ok, l + 1, l)

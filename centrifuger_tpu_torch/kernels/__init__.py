@@ -7,10 +7,13 @@ into kernels/_build/ (git-ignored) at first use, all in parallel, and
 bound with ctypes.  Nothing here is imported or compiled when the package is
 imported, and there is no fallback: a missing nvcc or a failed build raises.
 
-LAUNCHES counts, per kernel, the launches its wrapper made; callers reset it
+LAUNCHES counts the launches each wrapper made, under the name
+"<kernel>:<rank layout>[:<variant>...]" (for example "chain_search:plain",
+"chain_search:generic:lanes", "chain_search:plain:wideftab"); callers reset it
 with reset_launches().
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -21,23 +24,33 @@ import time
 
 import torch
 
-# C entry point arguments after the leading `const FMView*` and before the
-# trailing stream: P = device pointer, i = int
-SIGNATURES = {
-    "chain_search": "PPPiiiiPP",    # pack2 vmask lengths U L mhl H hits nhits
-    "resolve_rows": "PPiP",         # rows valid M out
-    "finalize_units": "PPiiiiiiP",  # hits nhits Q nr H mhl me k_out packed
-    "prefix_search": "PPiiP",       # codes ms B L out[3, B]
+# C entry point -> (the source that holds it, its arguments after the leading
+# `const FMView*` and before the trailing stream: P = device pointer, i = int)
+ENTRIES = {
+    # pack2 vmask lengths U L mhl H hits nhits
+    "chain_search": ("chain_search", "PPPiiiiPP"),
+    # codes lengths B L mhl H hits nhits
+    "chain_search_lanes": ("chain_search", "PPiiiiPP"),
+    # rows valid M out
+    "resolve_rows": ("resolve_rows", "PPiP"),
+    # hits nhits Q nr H mhl me k_out protein packed
+    "finalize_units": ("finalize_units", "PPiiiiiiiP"),
+    # codes ms B L out[3, B]
+    "prefix_search": ("prefix_search", "PPiiP"),
+    # mode a b c M out0 out1
+    "rank_probe": ("rank_probe", "iPPPiPP"),
 }
-KERNELS = tuple(SIGNATURES)
+KERNELS = tuple(dict.fromkeys(src for src, _ in ENTRIES.values()))
+LAYOUT_IDS = {"plain": 0, "runblock": 1, "generic": 2}
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
-_COMMON = ("fm_device.cuh",)
+_COMMON = ("fm_view.cuh", "fm_device.cuh", "rank_plain.cuh", "rank_mega.cuh",
+           "rank_runblock.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = collections.Counter()
 BUILD_LOG = {}
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -45,8 +58,7 @@ _LIBS = {}
 
 def reset_launches():
     with _LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        LAUNCHES.clear()
 
 
 def _nvcc():
@@ -106,42 +118,60 @@ def _lib(name):
 
 class FMView(ctypes.Structure):
     """Mirror of `struct FMView` in csrc/fm_device.cuh."""
-    _fields_ = [("rows", ctypes.c_void_p), ("ftab", ctypes.c_void_p),
-                ("psum", ctypes.c_void_p), ("sampled_sa", ctypes.c_void_p),
-                ("sel_rows", ctypes.c_void_p), ("sel_vals", ctypes.c_void_p),
-                ("rowmap", ctypes.c_void_p),
-                ("n", ctypes.c_int32), ("first_isa", ctypes.c_int32),
-                ("last_chr", ctypes.c_int32), ("sample_rate", ctypes.c_int32),
-                ("adjusted_sa0", ctypes.c_int32), ("pw", ctypes.c_int32),
-                ("n_sel", ctypes.c_int32)]
+    _POINTERS = ("rows", "mega", "ind_words", "ind_cum", "lit_words", "lit_occ",
+                 "run_words", "run_occ", "ftab", "psum", "sampled_sa", "sel_rows",
+                 "sel_vals", "end_marker_sa", "rowmap")
+    _INTS = ("layout", "n", "first_isa", "last_chr", "sample_rate", "adjusted_sa0",
+             "pw", "code_bits", "sigma", "n_sel", "n_end", "b", "b_lt_n", "width",
+             "lit_n", "run_n", "m_lit", "m_run")
+    _fields_ = ([(p, ctypes.c_void_p) for p in _POINTERS]
+                + [("ftab_size", ctypes.c_int64)]
+                + [(i, ctypes.c_int32) for i in _INTS])
 
 
 def _fm_view(fm):
     def ptr(t):
         return None if t is None else t.data_ptr()
-    return FMView(ptr(fm.rows), ptr(fm.ftab), ptr(fm.psum), ptr(fm.sampled_sa),
-                  ptr(fm.sel_rows), ptr(fm.sel_vals), ptr(fm.rowmap),
-                  fm.n, fm.first_isa, fm.last_chr, fm.sample_rate,
-                  fm.adjusted_sa0, fm.pw,
-                  0 if fm.sel_rows is None else len(fm.sel_rows))
+
+    def sub(m, name):
+        return None if m is None else getattr(m, name).data_ptr()
+    return FMView(
+        rows=ptr(fm.rows), mega=ptr(fm.mega),
+        ind_words=sub(fm.ind, "words"), ind_cum=sub(fm.ind, "cum"),
+        lit_words=sub(fm.lit, "words"), lit_occ=sub(fm.lit, "occ"),
+        run_words=sub(fm.run, "words"), run_occ=sub(fm.run, "occ"),
+        ftab=ptr(fm.ftab), psum=ptr(fm.psum), sampled_sa=ptr(fm.sampled_sa),
+        sel_rows=ptr(fm.sel_rows), sel_vals=ptr(fm.sel_vals),
+        end_marker_sa=ptr(fm.end_marker_sa), rowmap=ptr(fm.rowmap),
+        ftab_size=fm.ftab_size, layout=LAYOUT_IDS[fm.layout], n=fm.n,
+        first_isa=fm.first_isa, last_chr=fm.last_chr, sample_rate=fm.sample_rate,
+        adjusted_sa0=fm.adjusted_sa0, pw=fm.pw, code_bits=fm.code_bits,
+        sigma=fm.sigma,
+        n_sel=0 if fm.sel_rows is None else len(fm.sel_rows),
+        n_end=0 if fm.end_marker_sa is None else len(fm.end_marker_sa),
+        b=fm.b, b_lt_n=int(fm.b_lt_n),
+        width=0 if fm.lit is None else fm.lit.width,
+        lit_n=fm.lit_n, run_n=fm.run_n, m_lit=fm.m_lit, m_run=fm.m_run)
 
 
-def launch(name, fm, *args):
-    """Launch kernel `name` on the current stream of the index's device with
-    `args` in the order of SIGNATURES[name]."""
-    sig = SIGNATURES[name]
+def launch(entry, fm, *args, variant=()):
+    """Launch the C entry point `entry` on the current stream of the index's
+    device with `args` in the order of ENTRIES[entry]; the kernel is the
+    instantiation for the index's rank layout.  `variant` names what else the
+    wrapper's arguments select, for the launch count."""
+    kernel, sig = ENTRIES[entry]
     if len(args) != len(sig):
-        raise TypeError("%s takes %d arguments, got %d" % (name, len(sig), len(args)))
+        raise TypeError("%s takes %d arguments, got %d" % (entry, len(sig), len(args)))
     cargs = []
     for kind, a in zip(sig, args):
         if kind == "P":
             if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
-                raise ValueError("%s: a CPU tensor reached the kernel" % name)
+                raise ValueError("%s: a CPU tensor reached the kernel" % entry)
             cargs.append(a.data_ptr())
         else:
             cargs.append(int(a))
-    lib = _lib(name)
-    fn = getattr(lib, name + "_launch")
+    lib = _lib(kernel)
+    fn = getattr(lib, entry + "_launch")
     fn.argtypes = ([ctypes.POINTER(FMView)]
                    + [ctypes.c_void_p if k == "P" else ctypes.c_int for k in sig]
                    + [ctypes.c_void_p])
@@ -153,6 +183,6 @@ def launch(name, fm, *args):
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         raise RuntimeError("%s launch failed: CUDA error %d (%s)"
-                           % (name, rc, err(rc).decode()))
+                           % (entry, rc, err(rc).decode()))
     with _LOCK:
-        LAUNCHES[name] += 1
+        LAUNCHES[":".join((kernel, fm.layout) + tuple(variant))] += 1

@@ -2,8 +2,10 @@
 // kernel K3, with the expanded rows' SA resolve (K2) inline.
 //
 // Replaces the finalize part of centrifuger_tpu/classify/device_engine.py
-// fused_classify (:206-461): strand scores sum (l - 15)^2 and strand choice,
-// the unit's hit table, row expansion with the k * hitk bidirectional
+// fused_classify (:206-461): strand scores sum (l - adj)^2 and strand choice
+// (adj 15; on the protein path adj 5 and, before it, the choice of one of three
+// frames per read and strand, with no boundary adjustment), the unit's hit
+// table, row expansion with the k * hitk bidirectional
 // striding, merge-chain ids, the (k, sid, hit) sort of the unit's rows,
 // segmented chain / record sums, best / second / hitlen, deduplicated best
 // seqids and the flags; one packed row [5 + k_out] per unit.
@@ -13,15 +15,14 @@
 // Design: one warp per unit.  Lane 0 walks the unit's present hits in order
 // (there are at most 4 * H, read straight from the chain output), writes the
 // first W expanded rows to shared memory, lanes 0..W-1 resolve them in
-// parallel, and lane 0 finishes the unit on the W rows in registers.
+// parallel, and lane 0 finishes the unit on the W rows in registers.  A
+// template over the rank layout (the inline resolve's LF walk).
 #include "fm_device.cuh"
 
 namespace {
 
 constexpr int W = 8;               // per-unit row budget (U_CAP)
 constexpr int WARPS = 4;           // units per block
-constexpr int ADJ = 15;            // _scoreHitLenAdjust, nucleotide
-constexpr int32_t IMAX = 0x7fffffff;
 
 struct Slots {
   int n;          // 2 single-end, 4 paired
@@ -29,11 +30,30 @@ struct Slots {
   int k[4];       // strand record index: plus = 1, minus = 0
 };
 
-__device__ int32_t lane_score(const int4* h, int nh, int mhl) {
+__device__ int32_t lane_score(const int4* hits, const int32_t* nhits, int lane, int H,
+                              int mhl, int adj) {
+  const int4* h = hits + (int64_t)lane * H;
   int32_t s = 0;
-  for (int m = 0; m < nh; ++m)
-    if (h[m].z >= mhl) s += (h[m].z - ADJ) * (h[m].z - ADJ);
+  for (int m = 0; m < nhits[lane]; ++m)
+    if (h[m].z >= mhl) s += (h[m].z - adj) * (h[m].z - adj);
   return s;
+}
+
+// The protein path's frame choice for one read and strand: of lanes lane0,
+// +1, +2 the one with the largest nhits * score; the best starts at 0 and
+// only a strictly larger value replaces it, so ties keep the earlier frame.
+__device__ int chosen_frame(const int4* hits, const int32_t* nhits, int lane0, int H,
+                            int mhl, int adj) {
+  int32_t best = 0;
+  int tag = 0;
+  for (int fr = 0; fr < 3; ++fr) {
+    const int32_t sc = nhits[lane0 + fr] * lane_score(hits, nhits, lane0 + fr, H, mhl, adj);
+    if (sc > best) {
+      best = sc;
+      tag = fr;
+    }
+  }
+  return lane0 + tag;
 }
 
 // striding of one hit: rows to resolve and the forward-pass count
@@ -47,10 +67,12 @@ __device__ __forceinline__ void hit_counts(int32_t sp, int32_t ep, int32_t me, i
   *cnt = *simple ? rng : *cf + cb;
 }
 
+template <class Layout>
 __global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
                                       const int32_t* __restrict__ nhits, int Q, int nr, int H,
-                                      int mhl, int me, int k_out,
+                                      int mhl, int me, int k_out, int protein,
                                       int32_t* __restrict__ packed) {
+  const int adj = protein ? 5 : 15;   // _scoreHitLenAdjust
   __shared__ int32_t s_rows[WARPS][W];
   __shared__ int32_t s_seq[WARPS][W];
   __shared__ int32_t s_nvalid[WARPS];
@@ -65,15 +87,31 @@ __global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
   // expanded rows (valid ones): hit index s, its k, l
   int32_t r_s[W], r_k[W], r_l[W];
   if (ln == 0 && live_unit) {
-    const int f1 = 2 * nr * q, r1 = f1 + 1, f2 = f1 + 2, r2 = f1 + 3;
-    const int32_t sf1 = lane_score(hits + (int64_t)f1 * H, nhits[f1], mhl);
-    const int32_t sr1 = lane_score(hits + (int64_t)r1 * H, nhits[r1], mhl);
-    int32_t plus = sf1, minus = sr1;
-    adjust = nhits[f1] > 0 && nhits[r1] > 0;
+    int f1, r1, f2 = -1, r2 = -1;
+    if (protein) {
+      // lanes of a read: fwd frames 0..2, then rc frames 0..2
+      const int base = 6 * nr * q;
+      f1 = chosen_frame(hits, nhits, base, H, mhl, adj);
+      r1 = chosen_frame(hits, nhits, base + 3, H, mhl, adj);
+      if (nr == 2) {
+        f2 = chosen_frame(hits, nhits, base + 6, H, mhl, adj);
+        r2 = chosen_frame(hits, nhits, base + 9, H, mhl, adj);
+      }
+    } else {
+      f1 = 2 * nr * q;
+      r1 = f1 + 1;
+      if (nr == 2) {
+        f2 = f1 + 2;
+        r2 = f1 + 3;
+      }
+      adjust = (nhits[f1] > 0 && nhits[r1] > 0) ||
+               (nr == 2 && nhits[f2] > 0 && nhits[r2] > 0);
+    }
+    int32_t plus = lane_score(hits, nhits, f1, H, mhl, adj);
+    int32_t minus = lane_score(hits, nhits, r1, H, mhl, adj);
     if (nr == 2) {
-      plus += lane_score(hits + (int64_t)r2 * H, nhits[r2], mhl);
-      minus += lane_score(hits + (int64_t)f2 * H, nhits[f2], mhl);
-      adjust = adjust || (nhits[f2] > 0 && nhits[r2] > 0);
+      plus += lane_score(hits, nhits, r2, H, mhl, adj);
+      minus += lane_score(hits, nhits, f2, H, mhl, adj);
     }
     const bool tp = plus >= minus, tm = minus >= plus;
     if (nr == 2) {
@@ -109,7 +147,7 @@ __global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
   }
   __syncwarp();
   if (live_unit && ln < W)
-    s_seq[wid][ln] = ln < s_nvalid[wid] ? resolve_one(f, s_rows[wid][ln]) : 0;
+    s_seq[wid][ln] = ln < s_nvalid[wid] ? resolve_one<Layout>(f, s_rows[wid][ln]) : 0;
   __syncwarp();
   if (ln != 0 || !live_unit) return;
 
@@ -177,7 +215,7 @@ __global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
     const bool next_rb = !last && (ka[j + 1] != ka[j] || kb[j + 1] != kb[j]);
     const bool next_cb = !last && (next_rb || kch[j + 1] != kch[j]);
     if ((last || next_cb) && chain_lsum >= mhl)
-      rec_sum += (chain_lsum - ADJ) * (chain_lsum - ADJ);
+      rec_sum += (chain_lsum - adj) * (chain_lsum - adj);
     if (last || next_rb) {
       rec_sid[nrec] = kb[j];
       rec_k[nrec] = ka[j];
@@ -231,10 +269,11 @@ __global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
 
 extern "C" int finalize_units_launch(const FMView* f, const int32_t* hits,
                                      const int32_t* nhits, int Q, int nr, int H, int mhl,
-                                     int me, int k_out, int32_t* packed,
+                                     int me, int k_out, int protein, int32_t* packed,
                                      cudaStream_t stream) {
   const int blocks = (Q + WARPS - 1) / WARPS;
-  finalize_units_kernel<<<blocks, WARPS * 32, 0, stream>>>(
-      *f, reinterpret_cast<const int4*>(hits), nhits, Q, nr, H, mhl, me, k_out, packed);
+  CFR_DISPATCH_LAYOUT(f, finalize_units_kernel<Layout><<<blocks, WARPS * 32, 0, stream>>>(
+      *f, reinterpret_cast<const int4*>(hits), nhits, Q, nr, H, mhl, me, k_out, protein,
+      packed));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,86 +1,32 @@
-// Shared __device__ functions of the FM-index kernels: wide-row rank and
-// symbol, BackwardExtend, LF and the single-row SA resolve.
+// Shared __device__ functions of the FM-index kernels.  Every index access of
+// chain_search.cu, resolve_rows.cu, finalize_units.cu, prefix_search.cu and
+// rank_probe.cu goes through a rank layout: a struct with
 //
-// Index layout (centrifuger_tpu_torch/fm/device.py, TorchFM): 512-byte wide
-// rank rows of 128 uint32 words covering 1920 BWT symbols each,
-//   [occ_A, occ_C, occ_G, occ_T, occ_hi, prev_word, w0..w119, pad, pad]
-// where w_i holds 16 2-bit symbols (little-endian) and prev_word is the
-// previous row's w119, so the symbol at pos comes from the same row as the
-// rank at pos even when (pos + 1) % 1920 == 0.  All positions are int32
-// (n < 2^31 - 8).  Each function is value-identical to its plain twin in
+//   rank_sym(f, c, pos, &sym)   BWT rank_inclusive(c, pos) and the symbol at
+//                               pos; pos >= -1, and -1 gives rank 0
+//   backward_extend(f, c, sp, ep, &nsp, &nep)   FMIndex::BackwardExtend
+//   lf(f, p)                    the LF-mapping of row p >= 0
+//
+// PlainLayout (rank_plain.cuh), MegaLayout (rank_mega.cuh) and GenericLayout
+// (rank_runblock.cuh) give the same values on the same index; the kernels are
+// templates over the layout and CFR_DISPATCH_LAYOUT picks the instantiation
+// from FMView::layout.  Each function is value-identical to its plain twin in
 // TorchFM and to centrifuger_tpu.fm.device.DeviceFM.
 #pragma once
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "fm_view.cuh"
+#include "rank_mega.cuh"
+#include "rank_plain.cuh"
+#include "rank_runblock.cuh"
 
-#define WIDE_BLOCK 1920
-#define WIDE_WORDS 128
-#define WIDE_OFF 6
-#define WIDE_PREV 5
-
-struct FMView {              // mirrored by kernels/__init__.py:FMView
-  const int32_t* rows;       // [n / 1920 + 1, 128], uint32 bits
-  const int32_t* ftab;       // [2 * 4^pw] interleaved (start, len)
-  const int32_t* psum;       // [5]
-  const int32_t* sampled_sa; // [n / sample_rate + 1]
-  const int32_t* sel_rows;   // [n_sel] sorted, or null
-  const int32_t* sel_vals;   // [n_sel], or null
-  const int32_t* rowmap;     // [n], or null
-  int32_t n, first_isa, last_chr, sample_rate, adjusted_sa0, pw;
-  int32_t n_sel;
-};
-
-extern "C" const char* cfr_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-__device__ __forceinline__ const uint32_t* wide_row(const FMView& f, int32_t pos) {
-  // pos >= -1; row (pos + 1) / 1920 holds the occ before slot (pos + 1)
-  return reinterpret_cast<const uint32_t*>(f.rows) +
-         static_cast<int64_t>((pos + 1) / WIDE_BLOCK) * WIDE_WORDS;
-}
-
-// Occurrences of c in the first `upto` (< 1920) symbol slots of a row.
-__device__ __forceinline__ int32_t wide_prefix_count(const uint32_t* row, uint32_t c,
-                                                     int32_t upto) {
-  const uint32_t pat = c * 0x55555555u;
-  const int32_t full = upto >> 4, tail = upto & 15;
-  int32_t cnt = 0;
-  for (int32_t j = 0; j < full; ++j) {
-    uint32_t x = ~(__ldg(row + WIDE_OFF + j) ^ pat);
-    cnt += __popc(x & (x >> 1) & 0x55555555u);
-  }
-  if (tail) {
-    uint32_t x = ~(__ldg(row + WIDE_OFF + full) ^ pat);
-    cnt += __popc(x & (x >> 1) & 0x55555555u & ((1u << (2 * tail)) - 1u));
-  }
-  return cnt;
-}
-
-__device__ __forceinline__ int32_t wide_sym(const uint32_t* row, int32_t pos) {
-  const int32_t in_row = pos - ((pos + 1) / WIDE_BLOCK) * WIDE_BLOCK;
-  const uint32_t w = in_row < 0 ? __ldg(row + WIDE_PREV)
-                                : __ldg(row + WIDE_OFF + (in_row >> 4));
-  return static_cast<int32_t>((w >> ((pos & 15) * 2)) & 3u);
-}
-
-// BWT rank_inclusive(c, pos); pos = -1 gives 0.
-__device__ __forceinline__ int32_t rank_at(const FMView& f, int32_t c, int32_t pos,
-                                           int32_t* sym) {
-  const uint32_t* row = wide_row(f, pos);
-  if (sym) *sym = wide_sym(row, pos);
-  if (pos < 0) return 0;
-  return static_cast<int32_t>(__ldg(row + c)) +
-         wide_prefix_count(row, c, (pos + 1) % WIDE_BLOCK);
-}
-
-// FMIndex::BackwardExtend with the displaced-last-char corrections.
-__device__ __forceinline__ void backward_extend(const FMView& f, int32_t c, int32_t sp,
-                                                int32_t ep, int32_t* nsp, int32_t* nep) {
+// BackwardExtend from a layout's rank_sym, with the displaced-last-char
+// corrections; the sp == ep shortcut reads the symbol of the same row fetch.
+template <class Layout>
+__device__ __forceinline__ void extend_by_rank_sym(const FMView& f, int32_t c, int32_t sp,
+                                                   int32_t ep, int32_t* nsp, int32_t* nep) {
   const int32_t off = __ldg(f.psum + c);
   int32_t sym_ep;
-  const int32_t r_sp = rank_at(f, c, sp - 1, nullptr);
-  const int32_t r_ep = rank_at(f, c, ep, &sym_ep);
+  const int32_t r_sp = Layout::rank_sym(f, c, sp - 1, nullptr);
+  const int32_t r_ep = Layout::rank_sym(f, c, ep, &sym_ep);
   const bool last = c == f.last_chr;
   const int32_t s = off + r_sp + ((last && sp <= f.first_isa) ? 1 : 0);
   *nsp = s;
@@ -90,15 +36,71 @@ __device__ __forceinline__ void backward_extend(const FMView& f, int32_t c, int3
     *nep = off + r_ep + ((last && ep < f.first_isa) ? 1 : 0) - 1;
 }
 
-// LF-mapping of row p >= 0 from one wide row.
-__device__ __forceinline__ int32_t lf(const FMView& f, int32_t p) {
-  const uint32_t* row = wide_row(f, p);
-  const int32_t sym = wide_sym(row, p);
-  const int32_t rank = static_cast<int32_t>(__ldg(row + sym)) +
-                       wide_prefix_count(row, sym, (p + 1) % WIDE_BLOCK);
-  const int32_t corr = (sym == f.last_chr && p < f.first_isa) ? 1 : 0;
-  return __ldg(f.psum + sym) + rank + corr - 1;
-}
+struct PlainLayout {
+  static __device__ __forceinline__ int32_t rank_sym(const FMView& f, int32_t c, int32_t pos,
+                                                     int32_t* sym) {
+    return plain_rank_sym(f, c, pos, sym);
+  }
+  static __device__ __forceinline__ void backward_extend(const FMView& f, int32_t c,
+                                                         int32_t sp, int32_t ep, int32_t* nsp,
+                                                         int32_t* nep) {
+    extend_by_rank_sym<PlainLayout>(f, c, sp, ep, nsp, nep);
+  }
+  static __device__ __forceinline__ int32_t lf(const FMView& f, int32_t p) {
+    return plain_lf(f, p);
+  }
+};
+
+struct MegaLayout {
+  static __device__ __forceinline__ int32_t rank_sym(const FMView& f, int32_t c, int32_t pos,
+                                                     int32_t* sym) {
+    return mega_rank_sym(f, c, pos, sym);
+  }
+  static __device__ __forceinline__ void backward_extend(const FMView& f, int32_t c,
+                                                         int32_t sp, int32_t ep, int32_t* nsp,
+                                                         int32_t* nep) {
+    extend_by_rank_sym<MegaLayout>(f, c, sp, ep, nsp, nep);
+  }
+  // two rank calls: the symbol first (the rank of a dummy c is discarded)
+  static __device__ __forceinline__ int32_t lf(const FMView& f, int32_t p) {
+    int32_t sym;
+    mega_rank_sym(f, 0, p, &sym);
+    const int32_t r = mega_rank_sym(f, sym, p, nullptr);
+    const int32_t corr = (sym == f.last_chr && p < f.first_isa) ? 1 : 0;
+    return __ldg(f.psum + sym) + r + corr - 1;
+  }
+};
+
+struct GenericLayout {
+  static __device__ __forceinline__ int32_t rank_sym(const FMView& f, int32_t c, int32_t pos,
+                                                     int32_t* sym) {
+    if (sym) *sym = bwt_access(f, max(pos, 0));
+    return pos < 0 ? 0 : bwt_rank(f, c, pos);
+  }
+  static __device__ __forceinline__ void backward_extend(const FMView& f, int32_t c,
+                                                         int32_t sp, int32_t ep, int32_t* nsp,
+                                                         int32_t* nep) {
+    const int32_t off = __ldg(f.psum + c);
+    const int32_t s = off + fm_rank(f, c, sp, false);
+    *nsp = s;
+    if (sp == ep)
+      *nep = s + (bwt_access(f, ep) == c ? 0 : -1);
+    else
+      *nep = off + fm_rank(f, c, ep, true) - 1;
+  }
+  static __device__ __forceinline__ int32_t lf(const FMView& f, int32_t p) {
+    const int32_t c = bwt_access(f, p);
+    return __ldg(f.psum + c) + fm_rank(f, c, p, true) - 1;
+  }
+};
+
+// Runs the statement with `Layout` naming the rank layout of the index.
+#define CFR_DISPATCH_LAYOUT(f, ...)                                  \
+  switch ((f)->layout) {                                             \
+    case LAYOUT_PLAIN: { using Layout = PlainLayout; __VA_ARGS__; break; }    \
+    case LAYOUT_RUNBLOCK: { using Layout = MegaLayout; __VA_ARGS__; break; }  \
+    default: { using Layout = GenericLayout; __VA_ARGS__; break; }            \
+  }
 
 // Index of `row` in sel_rows, or -1 (binary search over the sorted table).
 __device__ __forceinline__ int32_t sel_find(const FMView& f, int32_t row) {
@@ -111,7 +113,9 @@ __device__ __forceinline__ int32_t sel_find(const FMView& f, int32_t row) {
 }
 
 // SA row -> stored value (BackwardToSampledSA): one rowmap load, or the LF
-// walk to a first-ISA, sampled or selected row, then that row's value.
+// walk to a first-ISA, sampled, selected or (where the index has no selected
+// rows) end-marker row, then that row's value.
+template <class Layout>
 __device__ __forceinline__ int32_t resolve_one(const FMView& f, int32_t row) {
   if (f.rowmap) return __ldg(f.rowmap + min(max(row, 0), f.n - 1));
   int32_t cur = row;
@@ -121,15 +125,55 @@ __device__ __forceinline__ int32_t resolve_one(const FMView& f, int32_t row) {
     if (f.n_sel) {
       const int32_t k = sel_find(f, cur);
       if (k >= 0) return __ldg(f.sel_vals + k);
+    } else if (cur < f.n_end) {
+      return __ldg(f.end_marker_sa + cur);
     }
-    cur = lf(f, cur);
+    cur = Layout::lf(f, cur);
   }
 }
 
-// ftab lookup of a packed pw-mer: (start, len).
-__device__ __forceinline__ void ftab_entry(const FMView& f, int32_t kmer, int32_t* start,
+// The pw-mer that ends at position `end - 1` of a code sequence, read back to
+// front: returns the length of the valid run ending there, capped at pw; the
+// packed k-mer (code j of the window at bits code_bits * j) is complete when
+// that is pw.  The key is 64 bits wide, so code_bits * pw may pass 31.
+template <class Codes>
+__device__ __forceinline__ int32_t start_kmer(const FMView& f, const Codes& codes,
+                                              int32_t end, uint64_t* kmer) {
+  int32_t tv = 0;
+  uint64_t k = 0;
+  while (tv < f.pw) {
+    const int32_t c = codes.code(end - 1 - tv);
+    if (c == 255) break;
+    k |= static_cast<uint64_t>(c) << (f.code_bits * (f.pw - 1 - tv));
+    ++tv;
+  }
+  *kmer = k;
+  return tv;
+}
+
+// ftab lookup of a packed pw-mer, the key clipped to the table: (start, len).
+__device__ __forceinline__ void ftab_entry(const FMView& f, uint64_t kmer, int32_t* start,
                                            int32_t* len) {
-  const int2 e = __ldg(reinterpret_cast<const int2*>(f.ftab) + kmer);
+  const int64_t k = kmer < static_cast<uint64_t>(f.ftab_size) ? static_cast<int64_t>(kmer)
+                                                              : f.ftab_size - 1;
+  const int2 e = __ldg(reinterpret_cast<const int2*>(f.ftab) + k);
   *start = e.x;
   *len = e.y;
 }
+
+// uint8 code lanes [B, L], 255 invalid.
+struct CodeLanes {
+  const uint8_t* codes;
+  const int32_t* lengths;
+  int L;
+  struct Lane {
+    const uint8_t* cd;
+    int32_t len;
+    __device__ __forceinline__ int32_t code(int32_t i) const {
+      return (i < 0 || i >= len) ? 255 : cd[i];
+    }
+  };
+  __device__ __forceinline__ Lane lane(int b) const {
+    return Lane{codes + static_cast<int64_t>(b) * L, lengths[b]};
+  }
+};

@@ -3,20 +3,21 @@
 //
 // Replaces centrifuger_tpu/fm/device.py DeviceFM._prefix_search_impl.
 //
-// Bound: each step is two dependent 128-byte line fetches from the wide rank
-// rows (latency-bound); the batch is small (a few hundred lanes at most).
+// Bound: each step is two dependent rank fetches at random rows
+// (latency-bound); the batch is small (a few hundred lanes at most).
 // Design: one thread per lane, ftab start then BackwardExtend until it fails
-// or covers ms.
+// or covers ms.  A template over the rank layout.
 #include "fm_device.cuh"
 
 namespace {
 
+template <class Layout>
 __global__ void prefix_search_kernel(FMView f, const uint8_t* __restrict__ codes,
                                      const int32_t* __restrict__ ms_in, int B, int L,
                                      int32_t* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const uint8_t* cd = codes + static_cast<int64_t>(b) * L;
+  const CodeLanes::Lane cd{codes + static_cast<int64_t>(b) * L, L};
   const int32_t pw = f.pw;
   const int32_t ms = ms_in[b];
   const int32_t msc = min(max(ms, 0), L);
@@ -25,13 +26,8 @@ __global__ void prefix_search_kernel(FMView f, const uint8_t* __restrict__ codes
   if (ms < pw) {
     l = 0;
   } else {
-    int32_t tv = 0, kmer = 0;
-    while (tv < pw && msc - 1 - tv >= 0) {
-      const int32_t c = cd[msc - 1 - tv];
-      if (c == 255) break;
-      kmer |= c << (2 * (pw - 1 - tv));
-      ++tv;
-    }
+    uint64_t kmer;
+    const int32_t tv = start_kmer(f, cd, msc, &kmer);
     if (tv < pw) {
       l = tv;
     } else {
@@ -48,10 +44,10 @@ __global__ void prefix_search_kernel(FMView f, const uint8_t* __restrict__ codes
     }
   }
   while (running && l < ms) {
-    const int32_t c = cd[min(max(ms - 1 - l, 0), L - 1)];
+    const int32_t c = cd.cd[min(max(ms - 1 - l, 0), L - 1)];
     if (c == 255) break;
     int32_t nsp, nep;
-    backward_extend(f, c, sp, ep, &nsp, &nep);
+    Layout::backward_extend(f, c, sp, ep, &nsp, &nep);
     if (nsp > nep) break;
     sp = nsp;
     ep = nep;
@@ -67,7 +63,8 @@ __global__ void prefix_search_kernel(FMView f, const uint8_t* __restrict__ codes
 extern "C" int prefix_search_launch(const FMView* f, const uint8_t* codes, const int32_t* ms,
                                     int B, int L, int32_t* out, cudaStream_t stream) {
   const int threads = 128;
-  prefix_search_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(*f, codes, ms, B,
-                                                                            L, out);
+  CFR_DISPATCH_LAYOUT(f, prefix_search_kernel<Layout>
+                      <<<(B + threads - 1) / threads, threads, 0, stream>>>(*f, codes, ms, B,
+                                                                            L, out));
   return static_cast<int>(cudaGetLastError());
 }

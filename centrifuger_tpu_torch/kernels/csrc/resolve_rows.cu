@@ -1,23 +1,24 @@
 // resolve_rows: SA row -> stored value (sequence id), kernel K2.
 //
-// Replaces centrifuger_tpu/fm/device.py DeviceFM._resolve_rows_impl (with
-// _plain_lf, _sample_stored_here, get_sampled_sa and _rowmap_fetch).
+// Replaces centrifuger_tpu/fm/device.py DeviceFM._resolve_rows_impl (with lf,
+// _sample_stored_here, get_sampled_sa and _rowmap_fetch).
 //
 // Bound: with a rowmap, one random 4-byte load per row (bytes-bound); without
-// one, an LF walk of up to sample_rate dependent 128-byte line fetches per
-// row (latency-bound).  Design: one thread per row walks to completion; the
+// one, an LF walk of up to sample_rate dependent rank fetches per row
+// (latency-bound).  Design: one thread per row walks to completion; the
 // TPU version's lane compaction and lockstep loop are not needed, and
-// sel_rows is searched by binary search.
+// sel_rows is searched by binary search.  A template over the rank layout.
 #include "fm_device.cuh"
 
 namespace {
 
+template <class Layout>
 __global__ void resolve_rows_kernel(FMView f, const int32_t* __restrict__ rows,
                                     const uint8_t* __restrict__ valid, int M,
                                     int32_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  out[i] = valid[i] ? resolve_one(f, rows[i]) : 0;
+  out[i] = valid[i] ? resolve_one<Layout>(f, rows[i]) : 0;
 }
 
 }  // namespace
@@ -26,7 +27,8 @@ extern "C" int resolve_rows_launch(const FMView* f, const int32_t* rows,
                                    const uint8_t* valid, int M, int32_t* out,
                                    cudaStream_t stream) {
   const int threads = 256;
-  resolve_rows_kernel<<<(M + threads - 1) / threads, threads, 0, stream>>>(*f, rows, valid,
-                                                                           M, out);
+  CFR_DISPATCH_LAYOUT(f, resolve_rows_kernel<Layout>
+                      <<<(M + threads - 1) / threads, threads, 0, stream>>>(*f, rows, valid,
+                                                                            M, out));
   return static_cast<int>(cudaGetLastError());
 }

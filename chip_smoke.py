@@ -1,37 +1,60 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives centrifuger_tpu_torch's main path (paired-end nucleotide cfr-classify,
-fused engine, plain serving layout, int32 index, one device) through the
-kernels built from this checkout, and holds every kernel to its plain
-PyTorch twin.  Phases (any failure exits non-zero and prints no result):
+Drives centrifuger_tpu_torch's paths through the kernels built from this
+checkout and holds every kernel to its plain PyTorch twin:
+
+  main  paired-end nucleotide cfr-classify, fused engine, plain serving layout
+  B     the same index and reads with --serve-layout runblock (the mega-table)
+  A     protein (translated) classify: a --protein index, nucleotide reads
+  C     a nucleotide index built with --ftabchars 12 (wide ftab)
+
+Phases (any failure exits non-zero and prints no result):
 
   1. the card's name and power limit (nvidia-smi)
-  2. build the CUDA kernels (one nvcc per source, in parallel)
+  2. build the CUDA kernels (one nvcc per source, in parallel); the three
+     synthetic databases are made and indexed meanwhile, one process each
   3. goldens on the card: the tests/fixtures indexes built by the port,
      classified by the port's CLI on cuda, byte-identical to the goldens
+     (nucleotide with the plain and the runblock layout, with and without
+     --no-rowmap; tiny_protein)
   4. the main path at size: a seeded synthetic DB (default 64 Mnt: 20
      genomes, every odd one a 3% mutant of the one before, with inverted
      repeats), built with the port's builder (rowmap included), and 65,536
      paired 100 bp reads classified through the CLI in batches of 8,192 pairs;
-     every kernel must have launched during this run
+     every kernel of the path must have launched during this run
   5. the same run with --no-rowmap (the LF-walk resolve): the same TSV
-  6. each kernel against its plain twin on the same CUDA tensors at the main
-     path's shapes, with CUDA-event timings: chain_search and finalize_units
-     on one batch of 8,192 pairs (32,768 strand lanes), prefix_search and
-     resolve_rows on the very tensors the host finish stage hands them for
-     a batch; and the first batch's TSV against a device="cpu" run
+  B. the same index loaded with --serve-layout runblock: the same TSV
+  A. a seeded synthetic protein DB (default 32 M amino acids: 20 proteomes,
+     every odd one a 3% mutant of the one before, 2% of the proteins shared by
+     all even ones) and 65,536 paired 100 bp reads back-translated from it
+  C. the first five genomes of the main DB (16 Mnt) indexed with
+     --ftabchars 12 and 8,192 read pairs
+     Each path's run is its reads through the CLI, then the public rank,
+     BackwardExtend and LF of the same index and layout at 4,096 rows, held
+     to the host index.
+     Each path: the launch counts of its own run, pairs/s through the CLI, the
+     steady-state engine rate, the device's busy time and idle share in one
+     profiled pass, peak device memory, and the head of its TSV against a
+     --device cpu run (the plain twins).
+  6. each kernel the paths launched against its plain twin on the same CUDA
+     tensors at the path's shapes, with CUDA-event timings: chain_search and
+     finalize_units on one batch of 8,192 pairs, prefix_search and
+     resolve_rows on the very tensors the host finish stage hands them for a
+     batch, rank_probe (one rank, one extend, one LF of each layout) at the
+     batch's lane count, and one rank of 2^20 random rows per layout.
 
 The second-to-last stdout line is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Logs go to chiprun_out/.
 
-  python3 chip_smoke.py [--db-nt N] [--seed S]
+  python3 chip_smoke.py [--db-nt N] [--db-aa N] [--seed S]
 """
 
 import argparse
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -53,6 +76,13 @@ BATCH_PAIRS = 8192
 N_PAIRS = 65536
 READ_LEN = 100
 N_GENOMES = 20
+FTAB12_GENOMES = 5                    # path C: the main DB's first genomes
+FTAB12_PAIRS = 8192
+CPU_PAIRS = {"main": 8192, "protein": 8192, "ftab12": 2048}   # TSV head run on the CPU
+MANY_ROWS = 1 << 20                   # rank_probe: rows of the per-layout timing
+AA_LETTERS = "ARNDCEQGHILKMFPSTWYV"   # codes 1..20 of the protein alphabet
+FX = os.path.join(REPO, "tests", "fixtures")
+CSRC = "centrifuger_tpu_torch/kernels/csrc/%s.cu"
 
 
 def fail(msg):
@@ -85,6 +115,18 @@ def make_taxonomy(n_genomes):
     return nodes, names, seq_taxids
 
 
+def write_taxonomy(d, seq_names, seq_taxa):
+    """nodes.dmp / names.dmp of the N_GENOMES taxa and the seqid map."""
+    nodes, names, taxids = make_taxonomy(N_GENOMES)
+    with open(os.path.join(d, "ref_seqid.map"), "w") as f:
+        f.writelines("%s\t%d\n" % (s, taxids[t]) for s, t in zip(seq_names, seq_taxa))
+    with open(os.path.join(d, "nodes.dmp"), "w") as f:
+        f.writelines("%d\t|\t%d\t|\t%s\t|\n" % (t, *nodes[t]) for t in sorted(nodes))
+    with open(os.path.join(d, "names.dmp"), "w") as f:
+        f.writelines("%d\t|\t%s\t|\t\t|\tscientific name\t|\n" % (t, names[t])
+                     for t in sorted(names))
+
+
 def make_genomes(n_nt, seed):
     """N_GENOMES code arrays; every odd genome is a 3% point mutant of the one
     before (sister strains), and each new genome carries inverted repeats
@@ -108,47 +150,119 @@ def make_genomes(n_nt, seed):
     return genomes
 
 
-def write_db(genomes, d):
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    with open(os.path.join(d, "ref.fa"), "wb") as f:
-        for i, g in enumerate(genomes):
-            f.write(b">SEQ_%06d\n" % i)
-            s = acgt[g]
+def write_fasta(path, names, seqs, letters):
+    table = np.frombuffer(letters.encode(), np.uint8)
+    with open(path, "wb") as f:
+        for name, g in zip(names, seqs):
+            f.write(b">%s\n" % name.encode())
+            s = table[g]
             pad = (-len(s)) % 70
             rows = np.concatenate([s, np.zeros(pad, np.uint8)]).reshape(-1, 70)
             out = np.concatenate([rows, np.full((len(rows), 1), 10, np.uint8)], 1)
             out = out.reshape(-1)
             f.write(out[out != 0].tobytes())
-    nodes, names, seq_taxids = make_taxonomy(len(genomes))
-    with open(os.path.join(d, "ref_seqid.map"), "w") as f:
-        f.writelines("SEQ_%06d\t%d\n" % (i, t) for i, t in enumerate(seq_taxids))
-    with open(os.path.join(d, "nodes.dmp"), "w") as f:
-        f.writelines("%d\t|\t%d\t|\t%s\t|\n" % (t, *nodes[t]) for t in sorted(nodes))
-    with open(os.path.join(d, "names.dmp"), "w") as f:
-        f.writelines("%d\t|\t%s\t|\t\t|\tscientific name\t|\n" % (t, names[t])
-                     for t in sorted(names))
+
+
+def write_db(genomes, d):
+    names = ["SEQ_%06d" % i for i in range(len(genomes))]
+    write_fasta(os.path.join(d, "ref.fa"), names, genomes, "ACGT")
+    write_taxonomy(d, names, range(len(genomes)))
+
+
+def write_pair(f1, f2, i, frag, rng):
+    """One read pair from a fragment of nucleotide codes: half of the fragments
+    reverse complemented, 0.5% substitutions."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    if rng.random() < 0.5:
+        frag = 3 - frag[::-1]
+    mates = [frag[:READ_LEN].copy(), (3 - frag[-READ_LEN:][::-1]).copy()]
+    for m, f in zip(mates, (f1, f2)):
+        err = rng.random(READ_LEN) < 0.005
+        m[err] = rng.integers(0, 4, int(err.sum()), dtype=np.uint8)
+        f.write(b"@p%07d\n%s\n+\n%s\n" % (i, acgt[m].tobytes(), b"I" * READ_LEN))
 
 
 def write_reads(genomes, n_pairs, seed, d):
-    """Paired 100 bp reads from 200-400 bp fragments, half of them reverse
-    complemented, with 0.5% substitutions."""
+    """Paired 100 bp reads from 200-400 bp fragments of the genomes."""
     rng = np.random.default_rng(seed)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    qual = b"I" * READ_LEN
     with open(os.path.join(d, "reads_1.fq"), "wb") as f1, \
             open(os.path.join(d, "reads_2.fq"), "wb") as f2:
         for i in range(n_pairs):
             g = genomes[rng.integers(0, len(genomes))]
             fl = int(rng.integers(200, 400))
             p = int(rng.integers(0, len(g) - fl))
-            frag = g[p:p + fl]
-            if rng.random() < 0.5:
-                frag = 3 - frag[::-1]
-            mates = [frag[:READ_LEN].copy(), (3 - frag[-READ_LEN:][::-1]).copy()]
-            for m, f in zip(mates, (f1, f2)):
-                err = rng.random(READ_LEN) < 0.005
-                m[err] = rng.integers(0, 4, int(err.sum()), dtype=np.uint8)
-                f.write(b"@p%07d\n%s\n+\n%s\n" % (i, acgt[m].tobytes(), qual))
+            write_pair(f1, f2, i, g[p:p + fl], rng)
+
+
+def make_proteomes(n_aa, seed):
+    """N_GENOMES proteomes as lists of amino-acid code arrays (1..20), proteins
+    of 150-550 residues.  Every odd proteome is a 3% point mutant of the one
+    before; the first 2% of every even proteome's proteins are those of
+    proteome 0 (conserved proteins, which every taxon carries)."""
+    rng = np.random.default_rng(seed)
+    per = n_aa // N_GENOMES
+    lens = []
+    while sum(lens) < per:
+        lens.append(int(rng.integers(150, 550)))
+    cuts = np.cumsum(lens)[:-1]
+    shared = cuts[max(1, len(lens) // 50) - 1]
+    proteomes, prev = [], None
+    for i in range(N_GENOMES):
+        if i % 2 == 1:
+            flat = prev.copy()
+            pos = rng.integers(0, len(flat), int(0.03 * len(flat)))
+            flat[pos] = rng.integers(1, 21, len(pos), dtype=np.uint8)
+        else:
+            flat = rng.integers(1, 21, sum(lens), dtype=np.uint8)
+            if proteomes:
+                flat[:shared] = np.concatenate(proteomes[0])[:shared]
+            prev = flat
+        proteomes.append(np.split(flat, cuts))
+    return proteomes
+
+
+def write_protein_db(proteomes, d):
+    names = ["T%02d_P%05d" % (t, j) for t, ps in enumerate(proteomes)
+             for j in range(len(ps))]
+    taxa = [t for t, ps in enumerate(proteomes) for _ in ps]
+    write_fasta(os.path.join(d, "ref.fa"), names, [p - 1 for ps in proteomes for p in ps],
+                AA_LETTERS)
+    write_taxonomy(d, names, taxa)
+
+
+def codon_table():
+    """(codons [21, 6, 3] nucleotide codes, count [21]) of the standard code,
+    by amino-acid code 1..20."""
+    from centrifuger_tpu_torch.classify.translate import _STD_CODE
+    codons = np.zeros((21, 6, 3), np.uint8)
+    count = np.zeros(21, np.int64)
+    for codon, aa in sorted(_STD_CODE.items()):
+        if aa == "_":
+            continue
+        a = AA_LETTERS.index(aa) + 1
+        codons[a, count[a]] = ["ACGT".index(c) for c in codon]
+        count[a] += 1
+    return codons, count
+
+
+def write_protein_reads(proteomes, n_pairs, seed, d):
+    """Paired 100 bp nucleotide reads from 200-400 bp fragments back-translated
+    from the proteins with a random choice among each residue's codons."""
+    rng = np.random.default_rng(seed)
+    codons, count = codon_table()
+    with open(os.path.join(d, "reads_1.fq"), "wb") as f1, \
+            open(os.path.join(d, "reads_2.fq"), "wb") as f2:
+        for i in range(n_pairs):
+            ps = proteomes[rng.integers(0, len(proteomes))]
+            p = ps[rng.integers(0, len(ps))]
+            fl = int(rng.integers(200, 400))
+            n_res = fl // 3 + 2
+            a = int(rng.integers(0, len(p) - n_res))
+            aa = p[a:a + n_res]
+            pick = (rng.random(n_res) * count[aa]).astype(np.int64)
+            nt = codons[aa, pick].reshape(-1)
+            off = int(rng.integers(0, 3))
+            write_pair(f1, f2, i, nt[off:off + fl], rng)
 
 
 def head_pairs(d, n_pairs, out):
@@ -162,14 +276,42 @@ def head_pairs(d, n_pairs, out):
 
 # ----------------------------------------------------------------- runners
 
-def build(fx_dir, prefix, log):
-    from centrifuger_tpu_torch.build import build_index
+def build(fx_dir, prefix, log, extra=()):
+    """The port's cfr-build entry in-process."""
+    from centrifuger_tpu_torch.cli import build_cli
     with contextlib.redirect_stderr(log):
-        build_index([os.path.join(fx_dir, "ref.fa")],
-                    os.path.join(fx_dir, "nodes.dmp"),
-                    os.path.join(fx_dir, "names.dmp"),
-                    os.path.join(fx_dir, "ref_seqid.map"),
-                    conversion_at_file_level=False, output_prefix=prefix)
+        rc = build_cli.main(["-r", os.path.join(fx_dir, "ref.fa"),
+                             "--taxonomy-tree", os.path.join(fx_dir, "nodes.dmp"),
+                             "--name-table", os.path.join(fx_dir, "names.dmp"),
+                             "--conversion-table", os.path.join(fx_dir, "ref_seqid.map"),
+                             "-o", prefix] + list(extra))
+    if rc != 0:
+        fail("build_cli returned %r for %s" % (rc, prefix))
+
+
+def make_database(kind, size, seed):
+    """One synthetic database with its reads and index under WORK/<kind>
+    (run in a process of its own, beside the other two)."""
+    d = os.path.join(WORK, kind)
+    os.makedirs(d)
+    t0 = time.time()
+    if kind == "protein":
+        proteomes = make_proteomes(size, seed)
+        write_protein_db(proteomes, d)
+        write_protein_reads(proteomes, N_PAIRS, seed + 1, d)
+        extra = ["--protein"]
+    else:
+        genomes = make_genomes(size, seed)
+        if kind == "ftab12":
+            genomes = genomes[:FTAB12_GENOMES]
+        write_db(genomes, d)
+        write_reads(genomes, FTAB12_PAIRS if kind == "ftab12" else N_PAIRS, seed + 1, d)
+        extra = ["--ftabchars", "12"] if kind == "ftab12" else []
+    t1 = time.time()
+    with open(os.path.join(OUT, "build_%s.txt" % kind), "w") as log:
+        build(d, os.path.join(d, "db"), log, extra)
+    with open(os.path.join(d, "times.json"), "w") as f:
+        json.dump({"data_s": t1 - t0, "build_s": time.time() - t1}, f)
 
 
 def classify(prefix, reads_dir, extra, log, paired=True):
@@ -202,6 +344,15 @@ def read_batches(reads_dir):
             for i in range(0, len(pairs), BATCH_PAIRS)]
 
 
+def make_engine(prefix, serve_layout="plain"):
+    from centrifuger_tpu_torch.build import load_index, is_protein_index
+    from centrifuger_tpu_torch.classify.engine import ClassifierTorch
+    from centrifuger_tpu_torch.classify.params import ClassifierParam
+    fm_host, tax, _, _ = load_index(prefix)
+    return ClassifierTorch(fm_host, tax, ClassifierParam(), device="cuda",
+                           protein=is_protein_index(prefix), serve_layout=serve_layout)
+
+
 def cuda_ms(fn, reps):
     """Median milliseconds of fn() on the card (CUDA events, after a warm-up)."""
     import torch
@@ -232,92 +383,235 @@ def max_abs_err(a, b):
 # ------------------------------------------------------------------ phases
 
 def phase_goldens(log):
-    fixtures = os.path.join(REPO, "tests", "fixtures")
-    for fx, paired in (("tiny", True), ("tiny_single", False), ("small", True)):
+    for fx, paired, protein in (("tiny", True, False), ("tiny_single", False, False),
+                                ("small", True, False), ("tiny_protein", False, True)):
         prefix = os.path.join(WORK, "fx_" + fx)
-        build(os.path.join(fixtures, fx), prefix, log)
-        for tag, extra in (("k1", []), ("k2", ["-k", "2"]), ("k5", ["-k", "5"])):
-            got, _ = classify(prefix, os.path.join(fixtures, fx), extra, log, paired)
-            with open(os.path.join(fixtures, fx, "golden_class_%s.tsv" % tag)) as f:
-                if got != f.read():
-                    fail("golden %s %s differs on the card" % (fx, tag))
-        say("phase 3: goldens %s k1/k2/k5 byte-identical on cuda" % fx)
+        build(os.path.join(FX, fx), prefix, log, ["--protein"] if protein else [])
+        modes = [[]] if protein else [
+            [], ["--serve-layout", "runblock"], ["--serve-layout", "runblock", "--no-rowmap"]]
+        for mode in modes:
+            for tag, extra in (("k1", []), ("k2", ["-k", "2"]), ("k5", ["-k", "5"])):
+                got, _ = classify(prefix, os.path.join(FX, fx), extra + mode, log, paired)
+                with open(os.path.join(FX, fx, "golden_class_%s.tsv" % tag)) as f:
+                    if got != f.read():
+                        fail("golden %s %s %s differs on the card" % (fx, tag, mode))
+        say("phase 3: goldens %s k1/k2/k5 byte-identical on cuda%s"
+            % (fx, "" if protein else
+               " (plain; runblock with and without --no-rowmap)"))
 
 
-def phase_kernels(prefix, reads_dir, launches):
-    """Each kernel against its plain twin at the main path's shapes."""
+def probe_index(prefix, serve_layout, n_probe=4096):
+    """The index's public rank, BackwardExtend and LF on the card (the
+    counterparts of DeviceFM.rank / backward_extend / lf, which rank_probe.cu
+    computes) at the table edges and seeded random rows, held to the host
+    index."""
     import torch
     from centrifuger_tpu_torch.build import load_index
-    from centrifuger_tpu_torch.classify import engine as engine_mod
-    from centrifuger_tpu_torch.classify import device_engine as de
-    from centrifuger_tpu_torch.classify.params import ClassifierParam
     from centrifuger_tpu_torch.fm import device as fd
+    fm = load_index(prefix)[0]
+    dev_fm = fd.TorchFM.from_index(fm, "cuda", serve_layout)
+    rng = np.random.default_rng(fm.n)
+    fi = fm.first_isa
+    rows = np.concatenate([
+        [0, 1, fi - 1, fi, fi + 1, fm.n - 1, 255, 256, 1919, 1920],
+        rng.integers(0, fm.n, n_probe - 10)])
+    rows = np.clip(rows, 0, fm.n - 1).astype(np.int64)
+    c = rng.integers(0, fm.sigma, len(rows))
+    c[:4] = fm.last_chr
+    ep = np.minimum(rows + rng.integers(0, 4, len(rows)) * 7, fm.n - 1)
 
-    fm_host, tax, _, _ = load_index(prefix)
-    eng = engine_mod.ClassifierTorch(fm_host, tax, ClassifierParam(), device="cuda")
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    rank, sym = fd.rank_sym(dev_fm, dev(c), dev(rows))
+    nsp, nep = fd.backward_extend(dev_fm, dev(c), dev(rows), dev(ep))
+    got = torch.stack([rank, sym, nsp, nep, fd.lf(dev_fm, dev(rows))]).cpu().numpy()
+    hsp, hep = fm.backward_extend(c, rows, ep)
+    want = [fm.bwt.rank_inclusive(c, rows), fm.bwt.access(rows), hsp, hep, fm.lf(rows)]
+    for what, g, w in zip(("rank", "symbol", "extend sp", "extend ep", "lf"), got, want):
+        if not np.array_equal(g, np.asarray(w).astype(np.int64)):
+            fail("the %s layout's %s disagrees with the host index of %s"
+                 % (dev_fm.layout, what, prefix))
+    return dev_fm.layout, len(rows)
+
+
+def run_path(name, label, prefix, reads_dir, extra, n_pairs, expect, log):
+    """One run of a path with the launch counts set to 0 just before and read
+    just after: the reads through the CLI and, where `expect` names
+    rank_probe, the index's public rank / extend / LF on the same index and
+    layout (probe_index).  Fails if a kernel named in `expect` never
+    launched."""
+    import torch
+    from centrifuger_tpu_torch import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.time()
+    tsv, units = classify(prefix, reads_dir, extra + ["--batch-size", str(BATCH_PAIRS)], log)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if any(k.startswith("rank_probe") for k in expect):
+        layout = extra[extra.index("--serve-layout") + 1] \
+            if "--serve-layout" in extra else "plain"
+        t1 = time.time()
+        say("%s: %s: rank, BackwardExtend and LF of %d rows on the card (%s layout) equal "
+            "the host index's (%.1f s, index load included)"
+            % ((label, name) + probe_index(prefix, layout)[::-1] + (time.time() - t1,)))
+    launches = dict(kernels.LAUNCHES)
+    say("%s: %s: %d pairs in %.2f s through the CLI (index load included): %.0f read "
+        "pairs/s; units fast %d fallback %d; launches %s; peak device memory %.1f MB"
+        % (label, name, n_pairs, wall, n_pairs / wall, units[0], units[1], launches,
+           peak / 1e6))
+    missing = [k for k in expect if not launches.get(k)]
+    if missing:
+        fail("kernels never launched on the %s path: %s" % (name, missing))
+    return tsv, launches
+
+
+def engine_rates(label, eng, bq, n_pairs, profile_name):
+    """Steady-state engine rate (second pass), then the device's busy time and
+    idle share in one profiled pass."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+
+    def one_pass():
+        for packed, fb, queries in eng.query_pipelined_packed(iter(bq)):
+            eng.format_tsv_batch(packed, fb, queries, ["r"] * len(queries))
+        torch.cuda.synchronize()
     fm = eng.dev
-    batches = read_batches(reads_dir)
-    queries = batches[0]
-    (pack2, vmask), lengths, nr, L = eng._pack_reads(queries)
-    pack2, vmask, lengths = (torch.from_numpy(x).cuda() for x in (pack2, vmask, lengths))
-    mhl = eng.param.min_hit_len
-    H = L // (mhl + 1) + 1
-    me = eng.param.max_result * eng.param.max_result_per_hit_factor
-    recs = []
+    rank_tables = [t for t in (fm.rows, fm.mega) if t is not None] + \
+        [t for m in (fm.ind, fm.lit, fm.run) if m is not None for t in m.buffers()]
+    say("%s: %s layout: rank tables %.1f MB of %.1f MB index buffers on the card"
+        % (label, fm.layout, nbytes(*rank_tables) / 1e6, nbytes(*fm.buffers()) / 1e6))
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        one_pass()
+        rate = n_pairs / (time.time() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        one_pass()
+        wall_ms = (time.time() - t0) * 1e3
+    ka = prof.key_averages()
+    # kernels and copies only: an aten op's own device time repeats theirs
+    busy_ms = sum(k.self_device_time_total for k in ka
+                  if k.device_type == DeviceType.CUDA) / 1e3
+    with open(os.path.join(OUT, profile_name), "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=30))
+    say("%s: steady-state engine rate (reads parsed beforehand, TSV formatted): %.0f "
+        "read pairs/s; profiled pass: wall %.1f ms, device busy %.2f ms, idle share "
+        "%.4f (table in chiprun_out/%s)"
+        % (label, rate, wall_ms, busy_ms, 1 - busy_ms / wall_ms, profile_name))
 
-    def bound(table_bytes, io_bytes):
+
+def check_cpu_head(label, kind, prefix, reads_dir, tsv, extra, log):
+    """The head of the path's reads on the CPU (plain versions) must give the
+    head of the card's TSV."""
+    n = CPU_PAIRS[kind]
+    head = os.path.join(WORK, "head_" + kind)
+    head_pairs(reads_dir, n, head)
+    t0 = time.time()
+    cpu_tsv, _ = classify(prefix, head, extra + ["--device", "cpu"], log)
+    if not tsv.startswith(cpu_tsv) or cpu_tsv.count("\n") < n:
+        fail("%s: the first %d pairs differ between cuda and cpu" % (label, n))
+    say("%s: first %d pairs identical on cpu and cuda (cpu run %.1f s)"
+        % (label, n, time.time() - t0))
+
+
+class Records:
+    """The per-kernel records of phase 6."""
+
+    def __init__(self, fm, launches):
+        self.fm, self.launches, self.recs = fm, launches, []
+
+    def bound(self, table_bytes, io_bytes):
         """(least ms, what bounds it): each input byte read and each output
         byte written once, and the integer work on the table words read."""
         t_bytes = (table_bytes + io_bytes) / HBM_BYTES_PER_MS
         t_ops = OPS_PER_TABLE_BYTE * table_bytes / OPS_PER_MS
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def record(name, replaces, err, ms, plain_ms, table_bytes, io_bytes,
-               library_ms=None):
-        bound_ms, bound_by = bound(table_bytes, io_bytes)
-        recs.append(dict(
-            name=name, route="cuda",
-            source="centrifuger_tpu_torch/kernels/csrc/%s.cu" % name,
-            replaces=replaces, launches=launches[name], max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms))
-        say("phase 6: %-15s err %d  kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)%s"
-            % (name, err, ms, plain_ms, bound_ms, bound_by,
-               "" if library_ms is None else "  library %.4f ms" % library_ms))
-
-    def traffic(fn):
-        fm.traffic = 0
+    def traffic(self, fn):
+        """(fn(), the index-table bytes the plain version counted)."""
+        import torch
+        self.fm.traffic = 0
         out = fn()
         torch.cuda.synchronize()
-        t, fm.traffic = fm.traffic, None
+        t, self.fm.traffic = self.fm.traffic, None
         return out, t
 
-    # K1 + K4
-    hits, nhits = de.chain_search(fm, pack2, vmask, lengths, mhl, H)
-    (phits, pnh), tr = traffic(lambda: de.chain_search_plain(fm, pack2, vmask, lengths, mhl, H))
-    err = max(max_abs_err(hits, phits), max_abs_err(nhits, pnh))
-    record("chain_search",
-           "centrifuger_tpu/fm/device.py:852 + centrifuger_tpu/classify/device_engine.py:145",
-           err, cuda_ms(lambda: de.chain_search(fm, pack2, vmask, lengths, mhl, H), 20),
-           cuda_ms(lambda: de.chain_search_plain(fm, pack2, vmask, lengths, mhl, H), 3),
-           tr, nbytes(pack2, vmask, lengths, hits, nhits))
-    say("phase 6: %d lanes, %d hits, H=%d" % (len(nhits), int(nhits.sum()), H))
+    def add(self, name, replaces, kernel, plain, io_bytes, library_ms=None,
+            same=None):
+        """Hold kernel() to plain() (tuples of tensors), time both, and record
+        them under the launch count `name`."""
+        got = kernel()
+        want, table_bytes = self.traffic(plain)
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        if same is not None:
+            err = max(err, max(max_abs_err(g, w) for g, w in zip(got, same)))
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+        bound_ms, bound_by = self.bound(table_bytes, io_bytes + nbytes(*got))
+        self.recs.append(dict(
+            name=name, route="cuda", source=CSRC % name.split(":")[0],
+            replaces=replaces, launches=self.launches.get(name, 0), max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms))
+        say("phase 6: %-32s err %d  kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)%s"
+            "  launches %d"
+            % (name, err, ms, plain_ms, bound_ms, bound_by,
+               "" if library_ms is None else "  library %.4f ms" % library_ms,
+               self.launches.get(name, 0)))
+        if err or not self.launches.get(name):
+            fail("%s: disagrees with its plain twin, or never launched on its path"
+                 % name)
+        return got
 
-    # K3 (with the inline resolve)
-    packed = de.finalize_units(fm, hits, nhits, nr, mhl, me, eng.K_OUT)
-    ppacked, tr = traffic(lambda: de.finalize_units_plain(fm, hits, nhits, nr, mhl, me,
-                                                          eng.K_OUT))
-    record("finalize_units", "centrifuger_tpu/classify/device_engine.py:164",
-           max_abs_err(packed, ppacked),
-           cuda_ms(lambda: de.finalize_units(fm, hits, nhits, nr, mhl, me, eng.K_OUT), 20),
-           cuda_ms(lambda: de.finalize_units_plain(fm, hits, nhits, nr, mhl, me,
-                                                   eng.K_OUT), 3),
-           tr, nbytes(hits, nhits, packed))
-    flagged = int(((packed[:, 4] != 0) | (packed[:, 3] > eng.K_OUT)).sum())
-    say("phase 6: %d units, %d flagged" % (len(packed), flagged))
+
+def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
+    """Every kernel a path launched against its plain twin at the path's
+    shapes.  `replaces` maps the kernels to the JAX programs they replace."""
+    import torch
+    from centrifuger_tpu_torch.classify import engine as engine_mod
+    from centrifuger_tpu_torch.classify import device_engine as de
+    from centrifuger_tpu_torch.fm import device as fd
+
+    fm = eng.dev
+    rec = Records(fm, launches)
+    lay = fm.layout
+    queries = batches[0]
+    mhl = eng.param.min_hit_len
+    me = eng.param.max_result * eng.param.max_result_per_hit_factor
+    if eng.protein:
+        codes, lengths, nr, L = eng._pack_reads_protein(queries)
+        reads = tuple(torch.from_numpy(x).cuda() for x in (codes, lengths))
+        chain, chain_plain = fd.chain_search_lanes, fd.chain_search_lanes_plain
+    else:
+        (pack2, vmask), lengths, nr, L = eng._pack_reads(queries)
+        reads = tuple(torch.from_numpy(x).cuda() for x in (pack2, vmask, lengths))
+        chain, chain_plain = de.chain_search, de.chain_search_plain
+    H = L // (mhl + 1) + 1
+    variant = fd.chain_variant(fm, lanes=eng.protein)
+    hits, nhits = rec.add(
+        ":".join(("chain_search", lay) + variant), replaces["chain_search"],
+        lambda: chain(fm, *reads, mhl, H), lambda: chain_plain(fm, *reads, mhl, H),
+        nbytes(*reads), same=ref_hits)
+    say("%s: %d lanes x %d codes, %d hits, H=%d"
+        % (label, len(nhits), L, int(nhits.sum()), H))
+    if "finalize_units" in replaces:
+        packed, = rec.add(
+            ":".join(("finalize_units", lay) + ("protein",) * eng.protein),
+            replaces["finalize_units"],
+            lambda: de.finalize_units(fm, hits, nhits, nr, mhl, me, eng.K_OUT, eng.protein),
+            lambda: de.finalize_units_plain(fm, hits, nhits, nr, mhl, me, eng.K_OUT,
+                                            eng.protein),
+            nbytes(hits, nhits))
+        flagged = int(((packed[:, 4] != 0) | (packed[:, 3] > eng.K_OUT)).sum())
+        say("%s: %d units, %d flagged" % (label, len(packed), flagged))
 
     # K5 and K2 on the tensors the host finish stage hands their wrappers
-    # when the batches run as on the main path: the first call of each
+    # when the batches run as on the path: the first call of each
+    wanted = [k for k in ("prefix_search", "resolve_rows") if k in replaces]
     handed = {}
 
     def spy(name, fn):
@@ -329,60 +623,101 @@ def phase_kernels(prefix, reads_dir, launches):
     engine_mod.prefix_search = spy("prefix_search", fd.prefix_search)
     engine_mod.resolve_rows = spy("resolve_rows", fd.resolve_rows)
     try:
-        for qs in batches:
+        for qs in batches if wanted else []:
             eng.finish_packed(eng._dispatch_fused(qs))
-            if len(handed) == 2:
+            if all(k in handed for k in wanted):
                 break
     finally:
         engine_mod.prefix_search = fd.prefix_search
         engine_mod.resolve_rows = fd.resolve_rows
-    if len(handed) != 2:
-        fail("the batches never called prefix_search and resolve_rows")
-    codes, ms = handed["prefix_search"]
-    rows, valid = handed["resolve_rows"]
-    say("phase 6: the finish stage hands prefix_search %d lanes x %d codes (ms "
-        "%d-%d, %d lanes with ms < %d) and resolve_rows %d rows"
-        % (codes.shape[0], codes.shape[1], int(ms.min()), int(ms.max()),
-           int((ms < codes.shape[1]).sum()), codes.shape[1], len(rows)))
+    if any(k not in handed for k in wanted):
+        fail("%s: the batches never called %s" % (label, wanted))
+    if "prefix_search" in wanted:
+        codes, ms = handed["prefix_search"]
+        say("%s: the finish stage hands prefix_search %d lanes x %d codes (ms %d-%d, "
+            "%d lanes with ms < %d)"
+            % (label, codes.shape[0], codes.shape[1], int(ms.min()), int(ms.max()),
+               int((ms < codes.shape[1]).sum()), codes.shape[1]))
+        rec.add("prefix_search:" + lay, replaces["prefix_search"],
+                lambda: fd.prefix_search(fm, codes, ms),
+                lambda: fd.prefix_search_plain(fm, codes, ms), nbytes(codes, ms))
+    if "resolve_rows" in wanted:
+        rows, valid = handed["resolve_rows"]
+        say("%s: the finish stage hands resolve_rows %d rows" % (label, len(rows)))
+        rowmap = fm.rowmap
+        lib = cuda_ms(lambda: torch.index_select(rowmap, 0, rows), 20)
+        rec.add("resolve_rows:" + lay, replaces["resolve_rows"],
+                lambda: fd.resolve_rows(fm, rows, valid),
+                lambda: fd.resolve_rows_plain(fm, rows, valid), nbytes(rows, valid), lib)
+        fm.rowmap = None
+        try:
+            got = fd.resolve_rows(fm, rows, valid)
+            want, tr = rec.traffic(lambda: fd.resolve_rows_plain(fm, rows, valid))
+            if max_abs_err(got, want):
+                fail("%s: resolve_rows (LF walk) disagrees with its plain twin" % label)
+            say("%s: resolve_rows LF-walk branch: err 0  kernel %.4f ms  plain %.4f ms  "
+                "bound %.4f ms (%s)"
+                % ((label, cuda_ms(lambda: fd.resolve_rows(fm, rows, valid), 20),
+                    cuda_ms(lambda: fd.resolve_rows_plain(fm, rows, valid), 3))
+                   + rec.bound(tr, nbytes(rows, valid, got))))
+        finally:
+            fm.rowmap = rowmap
 
-    l, sp, ep = fd.prefix_search(fm, codes, ms)
-    (pl, psp, pep), tr = traffic(lambda: fd.prefix_search_plain(fm, codes, ms))
-    record("prefix_search", "centrifuger_tpu/fm/device.py:1147",
-           max(max_abs_err(l, pl), max_abs_err(sp, psp), max_abs_err(ep, pep)),
-           cuda_ms(lambda: fd.prefix_search(fm, codes, ms), 20),
-           cuda_ms(lambda: fd.prefix_search_plain(fm, codes, ms), 3),
-           tr, nbytes(codes, ms) + 3 * nbytes(ms))
+    if "rank_probe" in replaces:
+        probe = probe_tensors(fm, len(nhits))
+        rank_probe_record(rec, fm, probe, replaces["rank_probe"])
+    return rec.recs, (hits, nhits)
 
-    rowmap = fm.rowmap
-    for branch in ("rowmap", "lf_walk"):
-        fm.rowmap = rowmap if branch == "rowmap" else None
-        got = fd.resolve_rows(fm, rows, valid)
-        want, tr = traffic(lambda: fd.resolve_rows_plain(fm, rows, valid))
-        lib = None
-        if branch == "rowmap":
-            lib = cuda_ms(lambda: torch.index_select(rowmap, 0, rows), 20)
-        rec_err = max_abs_err(got, want)
-        ms = cuda_ms(lambda: fd.resolve_rows(fm, rows, valid), 20)
-        pms = cuda_ms(lambda: fd.resolve_rows_plain(fm, rows, valid), 3)
-        if branch == "rowmap":
-            record("resolve_rows", "centrifuger_tpu/fm/device.py:707", rec_err, ms, pms,
-                   tr, nbytes(rows, valid, got), lib)
-        else:
-            if rec_err:
-                fail("resolve_rows (LF walk) disagrees with its plain twin")
-            say("phase 6: resolve_rows LF-walk branch: err 0  kernel %.4f ms  plain "
-                "%.4f ms  bound %.4f ms (%s)"
-                % ((ms, pms) + bound(tr, nbytes(rows, valid, got))))
-    fm.rowmap = rowmap
-    if any(r["max_abs_err"] for r in recs):
-        fail("a kernel disagrees with its plain twin: %s" % recs)
-    return recs
+
+def probe_tensors(fm, M, seed=5):
+    """(c, sp, ep) int32 [M] on the card: seeded random symbols and rows, half
+    of the ranges one row wide."""
+    import torch
+    rng = np.random.default_rng(seed)
+    sp = rng.integers(0, fm.n, M)
+    ep = np.minimum(sp + rng.integers(0, 64, M), fm.n - 1)
+    ep[::2] = sp[::2]
+    c = rng.integers(0, fm.sigma, M)
+    return tuple(torch.from_numpy(a.astype(np.int32)).cuda() for a in (c, sp, ep))
+
+
+def rank_probe_record(rec, fm, probe, replaces):
+    """rank_probe: one rank + symbol of M random rows is the record; one
+    BackwardExtend and one LF are held to their twins and timed beside it."""
+    from centrifuger_tpu_torch.fm import device as fd
+    c, sp, ep = probe
+
+    def ints(ts):
+        return tuple(t.int() for t in ts)
+    for what, kernel, plain in (
+            ("extend", lambda: fd.backward_extend(fm, c, sp, ep),
+             lambda: fm.backward_extend(c.long(), sp.long(), ep.long())),
+            ("lf", lambda: (fd.lf(fm, sp),), lambda: (fm.lf(sp.long()),))):
+        if any(max_abs_err(g, w) for g, w in zip(kernel(), ints(plain()))):
+            fail("rank_probe:%s %s disagrees with its plain twin" % (fm.layout, what))
+        say("phase 6: rank_probe:%s %s of %d rows: err 0  kernel %.4f ms  plain %.4f ms"
+            % (fm.layout, what, len(c), cuda_ms(kernel, 20), cuda_ms(plain, 3)))
+    rec.add("rank_probe:" + fm.layout, replaces, lambda: fd.rank_sym(fm, c, sp),
+            lambda: ints(fm.rank_sym(c.long(), sp.long())), nbytes(c, sp))
+    say("phase 6: rank_probe:%s one rank of %d random rows: %.4f ms"
+        % (fm.layout, MANY_ROWS, many_ranks_ms(fm)))
+
+
+def many_ranks_ms(fm):
+    """Kernel ms of one rank of MANY_ROWS random rows: enough work a launch for
+    the layouts to be told apart (a batch's lane count is near the launch
+    cost)."""
+    from centrifuger_tpu_torch.fm import device as fd
+    c, sp, _ = probe_tensors(fm, MANY_ROWS, seed=6)
+    return cuda_ms(lambda: fd.rank_sym(fm, c, sp), 20)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--db-nt", type=int, default=64_000_000,
-                    help="synthetic DB size (the repo's big DB is 300000000)")
+                    help="synthetic nucleotide DB size (the repo's big DB is 300000000)")
+    ap.add_argument("--db-aa", type=int, default=32_000_000,
+                    help="synthetic protein DB size in amino acids")
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -399,11 +734,20 @@ def main():
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     log = open(os.path.join(OUT, "smoke_log.txt"), "w")
+    db_procs = {}
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()[0]
         say("phase 1: %s" % smi)
+        # the three databases: data and host index build, one process each,
+        # beside the kernel build and the goldens
+        mp = multiprocessing.get_context("spawn")
+        for kind, size in (("main", args.db_nt), ("protein", args.db_aa),
+                           ("ftab12", args.db_nt)):
+            db_procs[kind] = mp.Process(target=make_database,
+                                        args=(kind, size, args.seed))
+            db_procs[kind].start()
         secs = kernels.build_all()
         say("phase 2: kernels built in %.1f s" % secs)
         for k, text in kernels.BUILD_LOG.items():
@@ -411,91 +755,113 @@ def main():
 
         phase_goldens(log)
 
-        t0 = time.time()
-        genomes = make_genomes(args.db_nt, args.seed)
-        write_db(genomes, WORK)
-        write_reads(genomes, N_PAIRS, args.seed + 1, WORK)
-        del genomes
-        say("phase 4: %d nt DB and %d pairs written in %.1f s"
-            % (args.db_nt, N_PAIRS, time.time() - t0))
-        t0 = time.time()
-        prefix = os.path.join(WORK, "db")
-        build(WORK, prefix, log)
-        say("phase 4: index built in %.1f s (rowmap: %s)"
-            % (time.time() - t0, os.path.exists(prefix + ".rowmap.npz")))
+        dirs = {k: os.path.join(WORK, k) for k in db_procs}
+        prefixes = {k: os.path.join(d, "db") for k, d in dirs.items()}
+        for kind, proc in db_procs.items():
+            proc.join()
+            if proc.exitcode != 0:
+                fail("building the %s database failed (chiprun_out/build_%s.txt)"
+                     % (kind, kind))
+            with open(os.path.join(dirs[kind], "times.json")) as f:
+                times = json.load(f)
+            say("phase 2: %s database: data written in %.1f s, index built in %.1f s "
+                "(rowmap: %s), %.1f s after the start"
+                % (kind, times["data_s"], times["build_s"],
+                   os.path.exists(prefixes[kind] + ".rowmap.npz"), time.time() - t_start))
+        say("sizes: main %d nt; protein %d aa; ftab12 %d nt (ftab %d entries); %d / %d / "
+            "%d read pairs" % (args.db_nt, args.db_aa,
+                               args.db_nt // N_GENOMES * FTAB12_GENOMES, 4 ** 12,
+                               N_PAIRS, N_PAIRS, FTAB12_PAIRS))
 
-        runs = {}
-        for name, extra in (("main", []), ("no_rowmap", ["--no-rowmap"])):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launches()
-            t0 = time.time()
-            tsv, units = classify(prefix, WORK, extra + ["--batch-size", str(BATCH_PAIRS)],
-                                  log)
-            wall = time.time() - t0
-            launches = dict(kernels.LAUNCHES)
-            runs[name] = (tsv, launches)
-            say("phase %s: %s: %d pairs in %.2f s through the CLI (index load "
-                "included): %.0f read pairs/s; units fast %d fallback %d; launches "
-                "%s; peak device memory %.1f MB"
-                % ("4" if name == "main" else "5", name, N_PAIRS, wall,
-                   N_PAIRS / wall, units[0], units[1], launches,
-                   torch.cuda.max_memory_allocated() / 1e6))
-            missing = [k for k, v in launches.items() if v == 0]
-            if name == "main" and missing:
-                fail("kernels never launched on the main path: %s" % missing)
-            if launches["chain_search"] == 0 or launches["finalize_units"] == 0:
-                fail("%s run did not go through the kernels" % name)
-        if runs["no_rowmap"][0] != runs["main"][0]:
+        def keys(layout, *kernel_names):
+            return ["%s:%s" % (k, layout) for k in kernel_names]
+        fused = ("chain_search", "finalize_units", "prefix_search", "resolve_rows",
+                 "rank_probe")
+        tsv, launches = {}, {}
+        tsv["main"], launches["main"] = run_path(
+            "main", "phase 4", prefixes["main"], dirs["main"], [], N_PAIRS,
+            keys("plain", *fused), log)
+        tsv["no_rowmap"], _ = run_path(
+            "no_rowmap", "phase 5", prefixes["main"], dirs["main"], ["--no-rowmap"],
+            N_PAIRS, keys("plain", "chain_search", "finalize_units"), log)
+        if tsv["no_rowmap"] != tsv["main"]:
             fail("--no-rowmap TSV differs from the rowmap TSV")
-        say("phase 5: --no-rowmap TSV identical (%d lines)"
-            % runs["main"][0].count("\n"))
+        say("phase 5: --no-rowmap TSV identical (%d lines)" % tsv["main"].count("\n"))
+        tsv["runblock"], launches["runblock"] = run_path(
+            "runblock", "path B", prefixes["main"], dirs["main"],
+            ["--serve-layout", "runblock"], N_PAIRS, keys("runblock", *fused), log)
+        tsv["runblock_lf"], _ = run_path(
+            "runblock --no-rowmap", "path B", prefixes["main"], dirs["main"],
+            ["--serve-layout", "runblock", "--no-rowmap"], N_PAIRS,
+            keys("runblock", "chain_search", "finalize_units"), log)
+        if tsv["runblock"] != tsv["main"] or tsv["runblock_lf"] != tsv["main"]:
+            fail("--serve-layout runblock TSV differs from the plain layout's")
+        say("path B: --serve-layout runblock TSV identical to the plain layout's, with "
+            "and without --no-rowmap")
+        tsv["protein"], launches["protein"] = run_path(
+            "protein", "path A", prefixes["protein"], dirs["protein"], [], N_PAIRS,
+            ["chain_search:generic:lanes", "finalize_units:generic:protein",
+             "resolve_rows:generic", "rank_probe:generic"], log)
+        say("path A: %d of %d pairs classified"
+            % (N_PAIRS - tsv["protein"].count("\tunclassified\t"), N_PAIRS))
+        tsv["ftab12"], launches["ftab12"] = run_path(
+            "ftab12", "path C", prefixes["ftab12"], dirs["ftab12"], [], FTAB12_PAIRS,
+            ["chain_search:plain:wideftab", "finalize_units:plain", "rank_probe:plain"],
+            log)
 
-        # steady-state serving rate: the engine on the loaded index, 2nd pass
-        from centrifuger_tpu_torch.build import load_index
-        from centrifuger_tpu_torch.classify.engine import ClassifierTorch
-        from centrifuger_tpu_torch.classify.params import ClassifierParam
-        fm_host, tax, _, _ = load_index(prefix)
-        eng = ClassifierTorch(fm_host, tax, ClassifierParam(), device="cuda")
-        bq = read_batches(WORK)
-        for rep in range(2):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            for packed, fb, queries in eng.query_pipelined_packed(iter(bq)):
-                eng.format_tsv_batch(packed, fb, queries, ["r"] * len(queries))
-            rate = N_PAIRS / (time.time() - t0)
-        say("phase 4: steady-state engine rate (reads parsed beforehand, TSV "
-            "formatted): %.0f read pairs/s" % rate)
-        # device busy share of one more pass, from a profiler trace
-        from torch.autograd import DeviceType
-        from torch.profiler import profile, ProfilerActivity
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            for packed, fb, queries in eng.query_pipelined_packed(iter(bq)):
-                eng.format_tsv_batch(packed, fb, queries, ["r"] * len(queries))
-            torch.cuda.synchronize()
-            wall_ms = (time.time() - t0) * 1e3
-        ka = prof.key_averages()
-        # kernels and copies only: an aten op's own device time repeats theirs
-        busy_ms = sum(k.self_device_time_total for k in ka
-                      if k.device_type == DeviceType.CUDA) / 1e3
-        with open(os.path.join(OUT, "profile.txt"), "w") as f:
-            f.write(ka.table(sort_by="self_device_time_total", row_limit=30))
-        say("phase 4: profiled pass: wall %.1f ms, device busy %.2f ms, idle share "
-            "%.4f (table in chiprun_out/profile.txt)"
-            % (wall_ms, busy_ms, 1 - busy_ms / wall_ms))
+        # rates, device busy and idle share, kernel records: one engine a path.
+        # A record names the JAX program its kernel replaces: on paths A and B
+        # the rank layout under the four kernels (K7 :372, K8 :521)
+        jax_fm, jax_de = "centrifuger_tpu/fm/device.py:", \
+            "centrifuger_tpu/classify/device_engine.py:"
+        recs = []
+        bq = read_batches(dirs["main"])
+        eng = make_engine(prefixes["main"])
+        engine_rates("phase 4", eng, bq, N_PAIRS, "profile.txt")
+        r, ref_hits = phase_kernels("phase 6 main", eng, bq, launches["main"], {
+            "chain_search": jax_fm + "852 + " + jax_de + "145",
+            "finalize_units": jax_de + "164", "prefix_search": jax_fm + "1147",
+            "resolve_rows": jax_fm + "707", "rank_probe": jax_fm + "450"})
+        recs += r
         eng._finish_pool().shutdown()
         del eng
 
-        # first batch on the CPU (plain versions) must equal the card's TSV
-        head = os.path.join(WORK, "head")
-        head_pairs(WORK, BATCH_PAIRS, head)
-        cpu_tsv, _ = classify(prefix, head, ["--device", "cpu"], log)
-        if not runs["main"][0].startswith(cpu_tsv):
-            fail("the first %d pairs differ between cuda and cpu" % BATCH_PAIRS)
-        say("phase 6: first %d pairs identical on cpu and cuda" % BATCH_PAIRS)
+        eng = make_engine(prefixes["main"], "runblock")
+        engine_rates("path B", eng, bq, N_PAIRS, "profile_runblock.txt")
+        r, _ = phase_kernels("phase 6 path B", eng, bq, launches["runblock"], {
+            k: jax_fm + "521" for k in fused}, ref_hits=ref_hits)
+        recs += r
+        eng._finish_pool().shutdown()
+        del eng, bq
 
-        recs = phase_kernels(prefix, WORK, runs["main"][1])
+        bq = read_batches(dirs["protein"])
+        eng = make_engine(prefixes["protein"])
+        engine_rates("path A", eng, bq, N_PAIRS, "profile_protein.txt")
+        r, _ = phase_kernels("phase 6 path A", eng, bq, launches["protein"], {
+            "chain_search": jax_fm + "372", "finalize_units": jax_de + "185",
+            "resolve_rows": jax_fm + "372", "rank_probe": jax_fm + "372"})
+        recs += r
+        eng._finish_pool().shutdown()
+        del eng, bq
+
+        bq = read_batches(dirs["ftab12"])
+        eng = make_engine(prefixes["ftab12"])
+        engine_rates("path C", eng, bq, FTAB12_PAIRS, "profile_ftab12.txt")
+        r, _ = phase_kernels("phase 6 path C", eng, bq, launches["ftab12"],
+                             {"chain_search": jax_fm + "1000"})
+        recs += r
+        eng._finish_pool().shutdown()
+        del eng, bq
+        torch.cuda.empty_cache()
+
+        # the head of each path's reads on the CPU (plain versions)
+        check_cpu_head("phase 6 main", "main", prefixes["main"], dirs["main"],
+                       tsv["main"], [], log)
+        check_cpu_head("path A", "protein", prefixes["protein"], dirs["protein"],
+                       tsv["protein"], [], log)
+        check_cpu_head("path C", "ftab12", prefixes["ftab12"], dirs["ftab12"],
+                       tsv["ftab12"], [], log)
+
         say("total %.1f s" % (time.time() - t_start))
         print(smi)
         print(json.dumps({"kernels": recs}))
@@ -503,6 +869,10 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
     finally:
+        for proc in db_procs.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
         log.close()
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -145,7 +145,7 @@ def test_read_over_l_max(tmp_path_factory):
         list(port.query_pipelined_packed(iter([[(read, None)]])))
 
 
-@pytest.mark.parametrize("flag", [["--engine", "jax"], ["--serve-layout", "runblock"],
+@pytest.mark.parametrize("flag", [["--engine", "jax"], ["--barcode-whitelist", "w.txt"],
                                   ["--shards", "2"], ["--merge-readpair"],
                                   ["--read-format", "r1:0:-1"], ["--un", "x"],
                                   ["--barcode", "b.fq"], ["--sample-sheet", "s.tsv"],

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from centrifuger_tpu.fm.builder import FMBuildParams, build_fm
 from centrifuger_tpu.testutil import synthetic_fm, sample_reads
 from centrifuger_tpu_torch.classify import device_engine as de
 from centrifuger_tpu_torch.fm import device as fd
@@ -85,3 +86,191 @@ def test_prefix_search_kernel(gpu):
     got = fd.prefix_search(tfm, codes, ms)
     want = fd.prefix_search_plain(tfm, codes, ms)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ------------------- the rank layouts: (kernel, layout) pairs and rank_probe
+
+PROTEIN_ALPHABET = "$ARNDCEQGHILKMFPSTWYV"
+
+
+def family_fm(seed=11, row_map=False):
+    """A nucleotide index over four near-identical genomes and a stranger: its
+    BWT has long runs, so the run-block split has run blocks, literal blocks
+    and several indicator rows."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, 12000).astype(np.uint8)
+    genomes = [g]
+    for _ in range(3):
+        h = g.copy()
+        pos = rng.integers(0, len(g), 60)
+        h[pos] = rng.integers(0, 4, 60)
+        genomes.append(h)
+    genomes.append(rng.integers(0, 4, 6000).astype(np.uint8))
+    fm = build_fm(np.concatenate(genomes), [len(x) for x in genomes],
+                  np.arange(len(genomes)), "ACGT", FMBuildParams(row_map=row_map))
+    assert fm.bwt.b < fm.bwt.n and fm.bwt.run.n > 1000 and fm.bwt.indicator.n > 512
+    return fm, genomes
+
+
+def synthetic_protein_fm(seed=5, n_records=40, rbbwt_b=0):
+    """A protein FM index (sigma 21, end markers, ftab width 4) over random
+    records, some of them near copies so that the BWT has run blocks."""
+    rng = np.random.default_rng(seed)
+    recs = []
+    for i in range(n_records):
+        if i % 3 == 2:
+            r = recs[-1][:-1].copy()
+            pos = rng.integers(0, len(r), 4)
+            r[pos] = rng.integers(1, 21, 4)
+        else:
+            r = rng.integers(1, 21, int(rng.integers(150, 600))).astype(np.uint8)
+            p = int(rng.integers(0, len(r) - 40))
+            r[p:p + int(rng.integers(5, 30))] = rng.integers(1, 21)
+        recs.append(np.concatenate([r, [0]]).astype(np.uint8))
+    params = FMBuildParams(precompute_width=4, has_end_marker=True, rbbwt_b=rbbwt_b)
+    fm = build_fm(np.concatenate(recs), [len(r) for r in recs],
+                  np.arange(len(recs)), PROTEIN_ALPHABET, params)
+    return fm, recs
+
+
+@pytest.fixture(scope="module")
+def layouts_gpu():
+    """{(layout, rowmap?): TorchFM on the card} of one run-rich index, and
+    packed reads from it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    fm, genomes = family_fm(row_map=True)
+    fms = {}
+    for layout in fd.LAYOUTS:
+        for rowmap in (True, False):
+            fields = fd.fm_arrays(fm)
+            if not rowmap:
+                fields["rowmap"] = None
+            fms[layout, rowmap] = fd.TorchFM(
+                fields, device="cuda", _generic=True) if layout == "generic" \
+                else fd.TorchFM(fields, device="cuda", serve_layout=layout)
+    reads = sample_reads(genomes, 512, 100, seed=3, err=0.01)
+    packed = tuple(torch.from_numpy(a).cuda() for a in pack_reads(reads, 128))
+    return fm, fms, packed
+
+
+@pytest.fixture(scope="module")
+def protein_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    fm, recs = synthetic_protein_fm()
+    rng = np.random.default_rng(2)
+    B, L = 6 * 2 * 64, 64
+    codes = np.full((B, L), 255, np.uint8)
+    lengths = np.zeros(B, np.int32)
+    for i in range(B):
+        r = recs[rng.integers(0, len(recs))]
+        ln = int(rng.integers(0, L + 1))
+        p = int(rng.integers(0, max(len(r) - ln, 1)))
+        frag = r[p:p + ln].copy()
+        frag[rng.random(len(frag)) < 0.03] = rng.integers(1, 21)
+        frag[rng.random(len(frag)) < 0.02] = 255
+        codes[i, :len(frag)] = frag
+        lengths[i] = len(frag)
+    tfm = fd.TorchFM(fd.fm_arrays(fm), device="cuda")
+    return fm, tfm, torch.from_numpy(codes).cuda(), torch.from_numpy(lengths).cuda()
+
+
+def probe_queries(fm, seed):
+    rng = np.random.default_rng(seed)
+    sp = np.concatenate([[0, fm.first_isa - 1, fm.first_isa, fm.first_isa + 1, fm.n - 1],
+                         np.arange(254, fm.n, 256)[:64], rng.integers(0, fm.n, 4096)])
+    sp = np.clip(sp, 0, fm.n - 1)
+    ep = np.minimum(sp + rng.integers(0, 400, len(sp)), fm.n - 1)
+    ep[::2] = sp[::2]
+    c = rng.integers(0, fm.sigma, len(sp))
+    c[::3] = fm.last_chr
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.int32)).cuda()
+    return dev(c), dev(sp), dev(ep)
+
+
+def check_rank_probe(tfm, c, sp, ep):
+    pos = sp.clone()
+    pos[:2] = -1
+    want = tfm.rank_sym(c.long(), pos.long())
+    got = fd.rank_sym(tfm, c, pos)
+    assert all(torch.equal(g, w.int()) for g, w in zip(got, want))
+    want = tfm.backward_extend(c.long(), sp.long(), ep.long())
+    got = fd.backward_extend(tfm, c, sp, ep)
+    assert all(torch.equal(g, w.int()) for g, w in zip(got, want))
+    assert torch.equal(fd.lf(tfm, sp), tfm.lf(sp.long()).int())
+
+
+@pytest.mark.parametrize("layout", fd.LAYOUTS)
+def test_rank_probe_kernel(layouts_gpu, layout):
+    fm, fms, _ = layouts_gpu
+    check_rank_probe(fms[layout, True], *probe_queries(fm, 1))
+
+
+def test_rank_probe_kernel_protein(protein_gpu):
+    fm, tfm = protein_gpu[:2]
+    assert tfm.layout == "generic" and tfm.lit.width == 8
+    check_rank_probe(tfm, *probe_queries(fm, 2))
+
+
+@pytest.mark.parametrize("rowmap", [True, False])
+@pytest.mark.parametrize("layout", ["runblock", "generic"])
+def test_kernels_on_layout(layouts_gpu, layout, rowmap):
+    """chain_search, finalize_units, resolve_rows and prefix_search on the
+    other two rank layouts: equal to their plain twins there and to the plain
+    layout's kernels."""
+    fm, fms, (pack2, vmask, lengths) = layouts_gpu
+    tfm, ref = fms[layout, rowmap], fms["plain", rowmap]
+    hits, nh = de.chain_search(tfm, pack2, vmask, lengths, 23, 6)
+    want = de.chain_search_plain(tfm, pack2, vmask, lengths, 23, 6)
+    assert torch.equal(hits, want[0]) and torch.equal(nh, want[1])
+    assert torch.equal(hits, de.chain_search(ref, pack2, vmask, lengths, 23, 6)[0])
+    for nr in (1, 2):
+        got = de.finalize_units(tfm, hits, nh, nr, 23, 40, 8)
+        assert torch.equal(got, de.finalize_units_plain(tfm, hits, nh, nr, 23, 40, 8))
+        assert torch.equal(got, de.finalize_units(ref, hits, nh, nr, 23, 40, 8))
+    rows = torch.from_numpy(np.random.default_rng(0).integers(
+        0, tfm.n, 4096).astype(np.int32)).cuda()
+    valid = torch.rand(4096, device="cuda") < 0.8
+    assert torch.equal(fd.resolve_rows(tfm, rows, valid),
+                       fd.resolve_rows_plain(tfm, rows, valid))
+    cf, _ = de.decode_packed_dna(pack2, vmask, lengths)
+    codes = cf.to(torch.uint8).contiguous()
+    ms = (lengths * torch.rand(len(lengths), device="cuda")).int()
+    got = fd.prefix_search(tfm, codes, ms)
+    want = fd.prefix_search_plain(tfm, codes, ms)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("nr", [1, 2])
+def test_protein_kernels(protein_gpu, nr):
+    """The protein path's kernels: chain_search over uint8 code lanes on the
+    generic layout, finalize_units with the frame choice, and the LF-walk
+    resolve that stops at end-marker rows."""
+    fm, tfm, codes, lengths = protein_gpu
+    hits, nh = fd.chain_search_lanes(tfm, codes, lengths, 11, 6)
+    want = fd.chain_search_lanes_plain(tfm, codes, lengths, 11, 6)
+    assert torch.equal(hits, want[0]) and torch.equal(nh, want[1])
+    assert int(nh.sum()) > 50
+    got = de.finalize_units(tfm, hits, nh, nr, 11, 40, 8, protein=True)
+    assert torch.equal(got, de.finalize_units_plain(tfm, hits, nh, nr, 11, 40, 8,
+                                                    protein=True))
+    assert tfm.rowmap is None and tfm.end_marker_sa is not None
+    rows = torch.arange(tfm.n, dtype=torch.int32, device="cuda")
+    valid = torch.ones(tfm.n, dtype=torch.bool, device="cuda")
+    assert torch.equal(fd.resolve_rows(tfm, rows, valid),
+                       fd.resolve_rows_plain(tfm, rows, valid))
+
+
+def test_launch_counts_name_layout_and_variant(layouts_gpu, protein_gpu):
+    from centrifuger_tpu_torch import kernels
+    fm, fms, (pack2, vmask, lengths) = layouts_gpu
+    kernels.reset_launches()
+    de.chain_search(fms["runblock", True], pack2, vmask, lengths, 23, 6)
+    hits, nh = fd.chain_search_lanes(*protein_gpu[1:], 11, 6)
+    de.finalize_units(protein_gpu[1], hits, nh, 1, 11, 40, 8, protein=True)
+    assert dict(kernels.LAUNCHES) == {"chain_search:runblock": 1,
+                                      "chain_search:generic:lanes": 1,
+                                      "finalize_units:generic:protein": 1}
