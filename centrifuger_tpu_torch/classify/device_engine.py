@@ -13,7 +13,10 @@ Q read units (nr mates each) the device runs
 
 and packs the result rows plus the first FB_CAP flagged units' chains into
 one flat int32 `host_blob`, the layout centrifuger_tpu ships to its host
-finish stage.  Each kernel has a plain PyTorch twin here with the same
+finish stage.  The chains are in the index type: on an int64 index each
+(sp, ep, l, off) of the blob is two int32 words, lo then hi, where the JAX
+program casts them to int32 (device_engine.py:463-465) and wraps sp and ep
+from n = 2^31 on.  Each kernel has a plain PyTorch twin here with the same
 signature; the wrappers take the twin only for CPU tensors.
 
 Semantics are value-identical to the JAX program and therefore to the host
@@ -75,7 +78,8 @@ def chain_search_plain(fm, pack2, vmask, lengths, mhl, H):
 
 def chain_search(fm, pack2, vmask, lengths, mhl, H):
     """K1 + K4 wrapper: pack2 uint8 [U, L/4], vmask uint8 [U, L/8], lengths
-    int32 [U] -> (hits int32 [2U, H, 4] of (sp, ep, l, off), nhits [2U])."""
+    int32 [U] -> (hits [2U, H, 4] of (sp, ep, l, off) in the index type,
+    nhits int32 [2U])."""
     _check(fm, "chain_search", pack2=(pack2, torch.uint8),
            vmask=(vmask, torch.uint8), lengths=(lengths, torch.int32))
     U, L4 = pack2.shape
@@ -84,7 +88,7 @@ def chain_search(fm, pack2, vmask, lengths, mhl, H):
                          "lengths [U] with L % 8 == 0")
     if pack2.device.type == "cpu":
         return chain_search_plain(fm, pack2, vmask, lengths, mhl, H)
-    hits = torch.empty(2 * U, H, 4, dtype=torch.int32, device=pack2.device)
+    hits = torch.empty(2 * U, H, 4, dtype=fm.idtype, device=pack2.device)
     nhits = torch.empty(2 * U, dtype=torch.int32, device=pack2.device)
     if U:
         kernels.launch("chain_search", fm, pack2, vmask, lengths, U, 4 * L4,
@@ -296,10 +300,10 @@ def finalize_units_plain(fm, hits, nhits, nr, mhl, max_entries, k_out,
 
 
 def finalize_units(fm, hits, nhits, nr, mhl, max_entries, k_out, protein=False):
-    """K3 wrapper: hits int32 [lpu Q, H, 4], nhits int32 [lpu Q] with lpu =
-    2 nr strand lanes a unit (protein: 6 nr frame lanes) -> packed int32
-    [Q, 5 + k_out]."""
-    _check(fm, "finalize_units", hits=(hits, torch.int32), nhits=(nhits, torch.int32))
+    """K3 wrapper: hits [lpu Q, H, 4] in the index type, nhits int32 [lpu Q]
+    with lpu = 2 nr strand lanes a unit (protein: 6 nr frame lanes) -> packed
+    int32 [Q, 5 + k_out]."""
+    _check(fm, "finalize_units", hits=(hits, fm.idtype), nhits=(nhits, torch.int32))
     B, H, four = hits.shape
     lpu = (6 if protein else 2) * nr
     if four != 4 or nhits.shape != (B,) or B % lpu:
@@ -324,7 +328,8 @@ def fused_classify(fm, pack2, vmask, lengths, nr, mhl, H, max_result,
     """The nucleotide device program (device_engine.fused_classify).
     pack2/vmask/lengths: U = Q * nr packed reads.  Returns a dict of tensors:
     packed [Q, 5 + k_out] (score, second, hitlen, n_best, flags, sids...),
-    hits [2U, H, 4], nhits [2U], fb_units, fb_hits, fb_nh and host_blob."""
+    hits [2U, H, 4] (index type), nhits [2U], fb_units, fb_hits, fb_nh and
+    host_blob (int32)."""
     _check_row_budget(pack2.shape[0] // nr, r_cap)
     hits, nhits = chain_search(fm, pack2, vmask, lengths, mhl, H)
     return _finish_program(fm, hits, nhits, nr, mhl, max_result * hitk_factor,
@@ -350,10 +355,16 @@ def _check_row_budget(Q, r_cap):
 
 def _finish_program(fm, hits, nhits, nr, mhl, max_entries, k_out, protein):
     packed = finalize_units(fm, hits, nhits, nr, mhl, max_entries, k_out, protein)
-    # the first FB_CAP flagged units' chains ship with the result: the
-    # selection is data movement (nonzero / gather), not a kernel
+    return pack_results(packed, hits, nhits, (6 if protein else 2) * nr)
+
+
+def pack_results(packed, hits, nhits, lpu):
+    """The program's outputs around packed [Q, 5 + k_out]: the first FB_CAP
+    flagged units' chains (fb_units, fb_hits, fb_nh; lpu lanes a unit) and the
+    one int32 host_blob of packed + fb_units + fb_hits + fb_nh.  The
+    selection is data movement (nonzero / gather), not a kernel."""
+    k_out = packed.shape[1] - 5
     Q = len(packed)
-    lpu = (6 if protein else 2) * nr
     fb_mask = (packed[:, 4] != 0) | (packed[:, 3] > k_out)
     nfb = min(Q, FB_CAP)
     fb_units = torch.full((nfb,), -1, dtype=torch.int32, device=hits.device)
@@ -363,6 +374,8 @@ def _finish_program(fm, hits, nhits, nr, mhl, max_entries, k_out, protein):
                 + torch.arange(lpu, device=hits.device)[None, :]).reshape(-1)
     fb_hits = hits[fb_lanes]
     fb_nh = nhits[fb_lanes]
-    host_blob = torch.cat([packed.reshape(-1), fb_units, fb_hits.reshape(-1), fb_nh])
+    # int64 chains as (lo, hi) int32 words: the blob keeps every bit
+    host_blob = torch.cat([packed.reshape(-1), fb_units,
+                           fb_hits.reshape(-1).view(torch.int32), fb_nh])
     return dict(packed=packed, hits=hits, nhits=nhits, fb_units=fb_units,
                 fb_hits=fb_hits, fb_nh=fb_nh, host_blob=host_blob)

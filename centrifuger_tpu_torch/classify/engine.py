@@ -1,7 +1,8 @@
 """Host wrapper for the fused device classification program (PyTorch).
 
-Port of centrifuger_tpu.classify.engine_fused.ClassifierFused (with the host
-parts of engine_jax.ClassifierJax it inherits).  Per batch the host packs the
+Port of centrifuger_tpu.classify.engine_fused.ClassifierFused, which derives
+from the non-fused engine (classify/engine_unfused.py) as ClassifierFused
+derives from engine_jax.ClassifierJax.  Per batch the host packs the
 reads 2 bits per base plus a validity mask, uploads them, runs the device
 program (classify/device_engine.py), pulls ONE flat int32 blob (packed rows +
 the flagged units' chains) and formats results.  Units the device flags
@@ -10,7 +11,10 @@ than it returns) take the exact host path, reusing the device chains, with
 their backward searches (K5) and SA resolves (K2) batched on the device.
 A protein index takes the translated search: the host translates each read
 into six amino-acid code lanes, the device chooses frame and strand, and
-flagged units have no boundary adjustment.
+flagged units have no boundary adjustment.  The batches the fused program
+cannot take (-k 0, --hitk-factor 0, a read over L_MAX) go to the non-fused
+engine on the same device.  On an int64 index the flagged units' chains ship
+in the blob as lo and hi int32 words of each int64 (sp, ep, l, off).
 
 Bit-identical to ClassifierNP / the reference binary; enforced by the golden
 TSV tests.
@@ -22,51 +26,25 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .engine_np import ClassifierNP, ClassifierResult, BWTHit
+from .engine_np import ClassifierResult, BWTHit
+from .engine_unfused import ClassifierTorchUnfused, _round_up
 from .device_engine import fused_classify, fused_classify_protein, U_CAP
 from .translate import translate_frames
-from ..fm.device import TorchFM, resolve_rows, prefix_search
 from ..utils import COMP_TABLE
 
 
-def _round_up(x, m):
-    return ((x + m - 1) // m) * m
-
-
-def _adjust_candidates(fwd, rc, length):
-    """Overapproximate the (which, m) backward searches adjust_hit_boundary
-    (Classifier.hpp:291-389) may issue for one read: every (fwd hit, rc hit)
-    pair contributes its two candidate prefix lengths, gated only on the
-    extension conditions evaluated on the ORIGINAL hit lists.  Rare cascaded
-    re-searches miss the cache and fall back to the host search.  Hits are
-    (sp, ep, l, off) tuples."""
-    out = set()
-    for hf in fwd:
-        right = length - hf[3] - 1
-        left = right - hf[2] + 1
-        for hr in rc:
-            rc_left = hr[3]
-            rc_right = rc_left + hr[2] - 1
-            if rc_right > right:
-                out.add((0, rc_right + 1))
-            if left < rc_left:
-                out.add((1, length - left))
-    return out
-
-
-class ClassifierTorch(ClassifierNP):
+class ClassifierTorch(ClassifierTorchUnfused):
     K_OUT = 8        # best seqids returned per read by the device (= U_CAP)
     U_CAP = U_CAP    # per-read SA-row budget on the device
     L_MAX = 8192     # max read length on the fused path (int32 score bound)
     PIPELINE_DEPTH = 8
 
     def __init__(self, fm, taxonomy, param, protein=False, dev=None,
-                 device="cuda", serve_layout="plain"):
-        super().__init__(fm, taxonomy, param, protein=protein)
-        self.dev = dev if dev is not None else \
-            TorchFM.from_index(fm, device, serve_layout)
-        self.device = self.dev.device
-        self.stats = {"fast_units": 0, "fallback_units": 0}
+                 device="cuda", serve_layout="plain", force_idtype=None):
+        super().__init__(fm, taxonomy, param, protein=protein, dev=dev,
+                         device=device, serve_layout=serve_layout,
+                         force_idtype=force_idtype)
+        self.stats["fallback_units"] = 0
         self._sid_prefix = None
         self._pool = None
 
@@ -141,12 +119,6 @@ class ClassifierTorch(ClassifierNP):
             lengths[i] = len(c)
         return codes, lengths, nr, L
 
-    def _upload(self, a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def _dispatch_fused(self, queries):
         if self.protein:
             codes, lengths, nr, L = self._pack_reads_protein(queries)
@@ -165,17 +137,20 @@ class ClassifierTorch(ClassifierNP):
 
     def _pull_results(self, out):
         """ONE device->host transfer: unpack host_blob (packed + fb_units +
-        fb_hits + fb_nh) into numpy arrays."""
+        fb_hits + fb_nh) into numpy arrays.  int64 fb_hits ship as two int32
+        words each (lo, hi) and are read back whole."""
         blob = out["host_blob"].cpu().numpy()
         q, w = out["packed"].shape
         packed = blob[:q * w].reshape(q, w)
         rest = blob[q * w:]
         fb = out["fb_units"].shape[0]
         hshape = tuple(out["fb_hits"].shape)
-        nfh = int(np.prod(hshape))
-        fbh = rest[fb:fb + nfh].reshape(hshape)
-        fbn = rest[fb + nfh:fb + nfh + out["fb_nh"].shape[0]]
-        return packed, dict(out, fb_units=rest[:fb], fb_hits=fbh, fb_nh=fbn)
+        words = out["fb_hits"].element_size() // 4
+        nfw = int(np.prod(hshape)) * words
+        fbh = rest[fb:fb + nfw].copy().view(np.int64 if words == 2 else np.int32)
+        fbn = rest[fb + nfw:fb + nfw + out["fb_nh"].shape[0]]
+        return packed, dict(out, fb_units=rest[:fb], fb_hits=fbh.reshape(hshape),
+                            fb_nh=fbn)
 
     def finish_packed(self, ctx):
         """(packed [Q, 5+K] numpy, {unit: ClassifierResult} for the
@@ -256,28 +231,6 @@ class ClassifierTorch(ClassifierNP):
             return [tuple(int(v) for v in hs[i, m]) for m in range(int(ns[i]))]
         return hits_at
 
-    def _batched_prefix_search(self, lane_codes, lane_ms):
-        """ONE device dispatch of longest-suffix backward searches (K5);
-        returns [(l, sp, ep), ...] aligned with the inputs."""
-        n = len(lane_codes)
-        if n == 0:
-            return []
-        codes = np.full((n, max(len(c) for c in lane_codes)), 255, np.uint8)
-        for i, c in enumerate(lane_codes):
-            codes[i, :len(c)] = c
-        ms = np.asarray(lane_ms, np.int32)
-        l, sp, ep = prefix_search(self.dev, self._upload(codes), self._upload(ms))
-        lse = torch.stack([l, sp, ep]).cpu().numpy()
-        return [(int(lse[0, i]), int(lse[1, i]), int(lse[2, i])) for i in range(n)]
-
-    def _resolve_batch_rows(self, rows):
-        """One device SA resolve (K2) for a flat row array."""
-        if len(rows) == 0:
-            return np.zeros(0, np.int64)
-        got = resolve_rows(self.dev, self._upload(rows.astype(np.int32)),
-                           self._upload(np.ones(len(rows), bool)))
-        return got.cpu().numpy().astype(np.int64)
-
     def _finish_fallback_units(self, queries, fb_idx, out, nr):
         """Exact host finalize for flagged units: one prefix_search dispatch
         serves every boundary-adjustment search, one resolve dispatch every
@@ -319,132 +272,12 @@ class ClassifierTorch(ClassifierNP):
             res.append((qi, hs, qlen))
         return res
 
-    def _fallback_unit_hits_dna(self, queries, fb_idx, hits_at, nr):
-        """Flagged units: batched boundary adjustment + strand choice.
-        Returns [(qi, hits, qlen), ...]."""
-        units = []
-        lane_codes, lane_ms, lane_key = [], [], []
-        for qi in fb_idx:
-            qi = int(qi)
-            r1, r2 = queries[qi]
-            base = 2 * nr * qi
-            f1, rc1 = hits_at(base), hits_at(base + 1)
-            c1f = self.encode[r1]
-            c1r = self.encode[COMP_TABLE[r1][::-1]]
-            if r2 is not None and nr == 2:
-                f2, rc2 = hits_at(base + 2), hits_at(base + 3)
-                c2f = self.encode[r2]
-                c2r = self.encode[COMP_TABLE[r2][::-1]]
-            else:
-                r2 = None
-                f2 = rc2 = c2f = c2r = None
-            ui = len(units)
-            units.append(dict(qi=qi, r1=r1, r2=r2, c=(c1f, c1r, c2f, c2r),
-                              h=(f1, rc1, f2, rc2), caches=({}, {})))
-            reads = [(0, f1, rc1, c1f, c1r, len(r1))]
-            if f2 is not None:
-                reads.append((1, f2, rc2, c2f, c2r, len(r2)))
-            for ri, fw, rc, cf, cr, ln in reads:
-                if not fw or not rc:
-                    continue
-                for which, m in _adjust_candidates(fw, rc, ln):
-                    lane_codes.append(cf if which == 0 else cr)
-                    lane_ms.append(m)
-                    lane_key.append((ui, ri, which, m))
-
-        for (ui, ri, which, m), r in zip(
-                lane_key, self._batched_prefix_search(lane_codes, lane_ms)):
-            units[ui]["caches"][ri][(which, m)] = r
-
-        res = []
-        for u in units:
-            c1f, c1r, c2f, c2r = u["c"]
-            f1, rc1, f2, rc2 = u["h"]
-
-            def mk_search(ri, cf, cr, cache=u["caches"]):
-                def search(which, m):
-                    r = cache[ri].get((which, m))
-                    if r is None:   # cascaded re-search (rare): host path
-                        r = self.backward_search(cf if which == 0 else cr, m)
-                    return r
-                return search
-
-            hs = self._adjusted_unit_hits(
-                u["r1"], u["r2"], c1f, c1r, c2f, c2r, f1, rc1, f2, rc2,
-                search1=mk_search(0, c1f, c1r),
-                search2=(mk_search(1, c2f, c2r) if u["r2"] is not None
-                         else None))
-            qlen = len(u["r1"]) + (len(u["r2"]) if u["r2"] is not None else 0)
-            res.append((u["qi"], hs, qlen))
-        return res
-
-    def _adjusted_unit_hits(self, r1, r2, c1f, c1r, c2f, c2r, f1, rc1, f2, rc2,
-                            search1=None, search2=None):
-        """SearchForwardAndReverse tail for one unit from the device chains:
-        boundary adjustment + strand selection (Classifier.hpp:291-389,
-        554-562)."""
-        strand_hits = [[BWTHit(*h, 0) for h in rc1], [BWTHit(*h, 0) for h in f1]]
-        self.adjust_hit_boundary(c1f[:len(r1)], c1r[:len(r1)], len(r1),
-                                 strand_hits, search=search1)
-        if r2 is not None:
-            r2_strand = [[BWTHit(*h, 0) for h in rc2], [BWTHit(*h, 0) for h in f2]]
-            self.adjust_hit_boundary(c2f[:len(r2)], c2r[:len(r2)], len(r2),
-                                     r2_strand, search=search2)
-            for k in range(2):
-                strand_hits[k].extend(r2_strand[1 - k])
-        strand_score = [0, 0]
-        for k in range(2):
-            for h in strand_hits[k]:
-                h.strand = 2 * k - 1
-            strand_score[k] = self.hits_score(strand_hits[k])
-        if strand_score[1] > strand_score[0]:
-            return strand_hits[1]
-        if strand_score[0] > strand_score[1]:
-            return strand_hits[0]
-        return strand_hits[1] + strand_hits[0]
-
-    def _classify_units_batch(self, unit_hits):
-        """Collect every SA row across the units, resolve them in ONE device
-        dispatch, then run the exact host score aggregation per unit."""
-        mhl = self.param.min_hit_len
-        row_parts, spans_all = [], []
-        off = 0
-        for qi, hs, qlen in unit_hits:
-            spans = []
-            for h in hs:
-                if h.l < mhl:
-                    spans.append(None)
-                    continue
-                rows = self.rows_for_hit(h)
-                spans.append((off, off + len(rows)))
-                off += len(rows)
-                row_parts.append(rows)
-            spans_all.append(spans)
-        all_rows = np.concatenate(row_parts) if row_parts else np.zeros(0, np.int64)
-        resolved_flat = self._resolve_batch_rows(all_rows)
-        fb = {}
-        empty = np.zeros(0, np.int64)
-        for (qi, hs, qlen), spans in zip(unit_hits, spans_all):
-            resolved = [resolved_flat[s[0]:s[1]] if s is not None else empty
-                        for s in spans]
-            res = ClassifierResult()
-            self.classify_from_hits(hs, res, resolved=resolved)
-            res.query_length = qlen
-            fb[qi] = res
-        return fb
-
     # ------------------------------------------------------------ main entry
 
     def _unfused_batch(self, queries):
         """A batch the fused program cannot take (-k 0, --hitk-factor 0, a
-        read over L_MAX).  The JAX package runs it on its non-fused device
-        engine, which is not ported yet; only a CPU engine may take the exact
-        host route, which gives the same results."""
-        if self.device.type != "cpu":
-            raise NotImplementedError(
-                "reads over %d bp, -k 0 and --hitk-factor 0 need the non-fused "
-                "device engine, not ported yet to centrifuger_tpu_torch (ROADMAP "
-                "queue 1 item 9)" % self.L_MAX)
+        read over L_MAX): the non-fused engine on the same device, as
+        ClassifierFused hands it to ClassifierJax."""
         return super().query_batch(queries)
 
     def query_batch(self, queries):

@@ -24,11 +24,6 @@ from ..io.writer import ResultWriter
 
 # flag -> (is it set?, the ROADMAP item that ports it)
 _NOT_PORTED = [
-    ("--engine jax", lambda a: a.engine == "jax",
-     "the non-fused engine (ROADMAP queue 1 item 9)"),
-    ("-k 0/--hitk-factor 0 on the card",
-     lambda a: a.device != "cpu" and (a.max_result <= 0 or a.hitk_factor <= 0),
-     "the non-fused engine (ROADMAP queue 1 item 9)"),
     ("--shards", lambda a: a.shards > 1,
      "sharded multi-GPU serving (ROADMAP queue 1 item 10, kernel K10)"),
     ("--read-format", lambda a: a.read_format,
@@ -50,15 +45,19 @@ def log(msg):
 
 
 def make_classifier(fm, tax, param, protein, engine, device="cuda",
-                    no_rowmap=False, serve_layout="plain"):
+                    no_rowmap=False, serve_layout="plain", force_idtype=None):
     if engine == "numpy":
         from ..classify.engine_np import ClassifierNP
         return ClassifierNP(fm, tax, param, protein=protein)
     if no_rowmap:
         fm.rowmap = None
+    if engine == "jax":
+        from ..classify.engine_unfused import ClassifierTorchUnfused
+        return ClassifierTorchUnfused(fm, tax, param, protein=protein, device=device,
+                                      serve_layout=serve_layout, force_idtype=force_idtype)
     from ..classify.engine import ClassifierTorch
     return ClassifierTorch(fm, tax, param, protein=protein, device=device,
-                           serve_layout=serve_layout)
+                           serve_layout=serve_layout, force_idtype=force_idtype)
 
 
 def main(argv=None):
@@ -86,7 +85,10 @@ def main(argv=None):
     ap.add_argument("--barcode-whitelist", default=None)
     ap.add_argument("--barcode-translate", default=None)
     ap.add_argument("--engine", choices=["numpy", "jax", "fused"], default="fused",
-                    help="compute engine (extension over the reference CLI)")
+                    help="compute engine (extension over the reference CLI): fused "
+                         "(one device program a batch), jax (the non-fused device "
+                         "engine: chain search on the device, finalize on the host) "
+                         "or numpy (the host engine)")
     ap.add_argument("--serve-layout", choices=["plain", "runblock"], default="plain",
                     help="device rank tables of a nucleotide index: plain "
                          "(512-byte wide rows, decoded from the run-block BWT at "
@@ -204,8 +206,9 @@ def main(argv=None):
     t.join()
     writer.finalize()
     if hasattr(classifier, "stats"):
+        st = classifier.stats
         log("Device units: %d fast, %d fallback to the exact host path"
-            % (classifier.stats["fast_units"], classifier.stats["fallback_units"]))
+            % (st["fast_units"], st.get("fallback_units", 0) + st.get("slow_units", 0)))
     log("Centrifuger(torch) finishes.")
     return 0
 

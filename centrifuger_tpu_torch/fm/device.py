@@ -1,9 +1,8 @@
 """Device-resident FM-index (PyTorch) and the plain twins of the FM kernels.
 
-Port of centrifuger_tpu.fm.device (DeviceFM) for int32 indexes.  `TorchFM`
-holds the index tables as buffers and ranks through one of three layouts,
-chosen at load time the way DeviceFM.__init__ does (results never depend on
-the choice):
+Port of centrifuger_tpu.fm.device (DeviceFM).  `TorchFM` holds the index
+tables as buffers and ranks through one of three layouts, chosen at load time
+the way DeviceFM.__init__ does (results never depend on the choice):
 
   plain     sigma 4.  rows int32 [n // 1920 + 1, 128]: the 512-byte wide rank
             rows, an int32 view of uint32 words
@@ -17,12 +16,20 @@ the choice):
 
 and beside them, for every layout,
 
-  ftab        int32 [2 * 2^(code_bits * pw)]  flat interleaved (start, len)
-  psum        int32 [sigma + 1]  F-column partial sums
-  sampled_sa  int32             row-sampled SA (sequence ids)
-  sel_rows    int32             sorted genome-boundary rows, sel_vals beside
-  end_marker_sa int32           sequence ids of the end-marker rows (protein)
+  ftab        idtype [2 * 2^(code_bits * pw)]  flat interleaved (start, len)
+  psum        idtype [sigma + 1]  F-column partial sums
+  sampled_sa  idtype            row-sampled SA (sequence ids)
+  sel_rows    idtype            sorted genome-boundary rows, sel_vals beside
+  end_marker_sa idtype          sequence ids of the end-marker rows (protein)
   rowmap      int32 [n]         optional precomputed LF-walk result per row
+
+The index type `idtype` (kernel K9) is int32 below n = 2^31 - 8 and int64
+from there on, or what `force_idtype` asks for; every position, rank and
+count table, the stream occ and the bitvector cum take it, and so do the
+positions the wrappers take and return.  The wide rows stay uint32: an int64
+index reads its 40-bit occ as the lo word plus the row's WIDE_HI byte.  With
+int64 a run-block serving layout ranks through the generic layout (the
+mega-table's row math is 32-bit), and a rowmap is refused from n = 2^31.
 
 The kernels (kernels/csrc/*.cu) take these buffers as they are and read the
 words as uint32.  The plain versions below are batched tensor code: CPU torch
@@ -30,6 +37,8 @@ has no popcount and its uint32 lacks shifts and comparisons, so they widen the
 words to int64 and count bits with SWAR.  A wrapper runs the plain version
 only for CPU tensors; a CUDA tensor always launches the kernel.
 """
+
+import copy
 
 import numpy as np
 import torch
@@ -52,6 +61,7 @@ SERVE_LAYOUTS = ("plain", "runblock")      # the load-time choice (sigma 4)
 LAYOUTS = SERVE_LAYOUTS + ("generic",)     # the rank layouts of the kernels
 
 INT32_LIMIT = (1 << 31) - 8   # DeviceFM switches to int64 lanes at this n
+IDTYPES = {"int32": torch.int32, "int64": torch.int64}
 _M32 = 0xFFFFFFFF
 _LOW = {2: 0x55555555, 4: 0x11111111, 8: 0x01010101}
 
@@ -65,6 +75,19 @@ def resolve_device(device):
             "device %r was asked for but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch versions" % str(device))
     return device
+
+
+def index_dtype(n, force_idtype=None):
+    """The index type of an index of n rows (DeviceFM.__init__'s switch):
+    int32 below INT32_LIMIT, else int64; force_idtype "int32" / "int64"
+    overrides it where the positions fit."""
+    if force_idtype is None:
+        return torch.int32 if n < INT32_LIMIT else torch.int64
+    if force_idtype not in IDTYPES:
+        raise ValueError("force_idtype must be one of %s" % (tuple(IDTYPES),))
+    if force_idtype == "int32" and n >= INT32_LIMIT:
+        raise ValueError("n = %d needs int64 positions" % n)
+    return IDTYPES[force_idtype]
 
 
 def _popcount32(v):
@@ -134,10 +157,11 @@ def _on(mask, fn, *args):
 
 class TorchPacked(nn.Module):
     """Device mirror of a PackedSeq (DevicePacked): words int32
-    [nblk, 256 / per_word] (uint32 bits), occ int32 [nblk, sigma] counts
-    before each 256-symbol block."""
+    [nblk, 256 / per_word] (uint32 bits), occ [nblk, sigma] counts before
+    each 256-symbol block, in the index type."""
 
-    def __init__(self, words, occ, width, n, device, account=_no_account):
+    def __init__(self, words, occ, width, n, device, account=_no_account,
+                 idtype=np.int32):
         super().__init__()
         self.n = int(n)
         self.width = int(width)
@@ -147,7 +171,7 @@ class TorchPacked(nn.Module):
         padded = np.zeros(nblk * self.wpb, dtype=np.uint32)
         padded[:len(words)] = words
         _buf(self, "words", padded.reshape(nblk, self.wpb).view(np.int32), device)
-        _buf(self, "occ", np.asarray(occ).astype(np.int32), device)
+        _buf(self, "occ", np.asarray(occ).astype(idtype), device)
         self.account = account
 
     def rank_inclusive(self, c, idx):
@@ -155,13 +179,14 @@ class TorchPacked(nn.Module):
         pos1 = idx + 1
         blk = torch.div(pos1, OCC_BLOCK, rounding_mode="floor")
         rem = pos1 - blk * OCC_BLOCK
-        self.account(lambda: (4 + 4 * _ceil_div(rem, self.per_word)).sum())
+        isz = self.occ.element_size()
+        self.account(lambda: (isz + 4 * _ceil_div(rem, self.per_word)).sum())
         rows = self.words[blk].long() & _M32
         k = torch.arange(self.wpb, device=idx.device)[None, :]
         take = (rem[:, None] - k * self.per_word).clamp(0, self.per_word)
         m = _swar_match(rows, c[:, None], self.width) & \
             _low_bits(take * self.width) & _LOW[self.width]
-        return self.occ.long()[blk, c] + _popcount32(m).sum(dim=1)
+        return self.occ[blk, c].long() + _popcount32(m).sum(dim=1)
 
     def access(self, idx):
         self.account(lambda: 4 * idx.numel())
@@ -173,9 +198,10 @@ class TorchPacked(nn.Module):
 
 class TorchBitvector(nn.Module):
     """Device mirror of a Bitvector (DeviceBitvector): words int32 [ngrp, 8]
-    with one zero group appended, cum int32 ones before each group."""
+    with one zero group appended, cum the ones before each group in the index
+    type."""
 
-    def __init__(self, words, cum, n, device, account=_no_account):
+    def __init__(self, words, cum, n, device, account=_no_account, idtype=np.int32):
         super().__init__()
         self.n = int(n)
         nwords = len(words)
@@ -184,19 +210,20 @@ class TorchBitvector(nn.Module):
         padded = np.zeros(ngrp * RANK_WORDS, dtype=np.uint32)
         padded[:nwords] = words
         _buf(self, "words", padded.reshape(ngrp, RANK_WORDS).view(np.int32), device)
-        _buf(self, "cum", np.asarray(cum).astype(np.int32), device)
+        _buf(self, "cum", np.asarray(cum).astype(idtype), device)
         self.account = account
 
     def rank1_inclusive(self, idx):
         pos1 = idx + 1
         wi = pos1 >> 5
         grp = torch.div(wi, RANK_WORDS, rounding_mode="floor")
-        self.account(lambda: (4 + 4 * _ceil_div(pos1 - grp * (32 * RANK_WORDS), 32)).sum())
+        isz = self.cum.element_size()
+        self.account(lambda: (isz + 4 * _ceil_div(pos1 - grp * (32 * RANK_WORDS), 32)).sum())
         rows = self.words[grp].long() & _M32
         j = grp[:, None] * RANK_WORDS + torch.arange(RANK_WORDS, device=idx.device)[None, :]
         cnt = torch.where(j < wi[:, None], _popcount32(rows), 0).sum(dim=1)
         tw = rows.gather(1, (wi - grp * RANK_WORDS).clamp(0, RANK_WORDS - 1)[:, None])[:, 0]
-        return self.cum.long()[grp] + cnt + _popcount32(tw & _low_bits(pos1 & 31))
+        return self.cum[grp].long() + cnt + _popcount32(tw & _low_bits(pos1 & 31))
 
     def access(self, idx):
         self.account(lambda: 4 * idx.numel())
@@ -235,6 +262,39 @@ def build_wide_rows(bwt_codes):
     return rows
 
 
+def offset_wide_rows(rows, offset):
+    """A copy of uint32 wide rows [R, 128] with `offset` added to every occ
+    column, the 40-bit sum split into the lo word and the row's WIDE_HI byte.
+    An int64 index over such rows ranks `offset` higher at every pos >= 0:
+    the tests and chip_smoke.py check the hi byte that way without an index
+    of 2^32 symbols."""
+    rows = np.array(rows, dtype=np.uint32)
+    hi = rows[:, WIDE_HI].astype(np.uint64)
+    new_hi = np.zeros(len(rows), np.uint64)
+    for c in range(4):
+        occ = rows[:, c].astype(np.uint64) + \
+            (((hi >> np.uint64(8 * c)) & np.uint64(0xFF)) << np.uint64(32)) + np.uint64(offset)
+        if (occ >> np.uint64(40)).any():
+            raise ValueError("the offset occ does not fit 40 bits")
+        rows[:, c] = (occ & np.uint64(_M32)).astype(np.uint32)
+        new_hi |= (occ >> np.uint64(32)) << np.uint64(8 * c)
+    rows[:, WIDE_HI] = new_hi.astype(np.uint32)
+    return rows
+
+
+def offset_rows_view(fm, offset):
+    """The int64 plain-layout index `fm` with its wide rows offset
+    (offset_wide_rows); the other buffers are shared.  Only its rank_sym has
+    a meaning."""
+    if fm.layout != "plain" or fm.idtype != torch.int64:
+        raise ValueError("offset rows need an int64 index on the plain layout")
+    out = copy.copy(fm)
+    out._buffers = dict(fm._buffers)
+    rows = offset_wide_rows(fm.rows.cpu().numpy().view(np.uint32), offset)
+    out.rows = torch.from_numpy(rows.view(np.int32)).to(fm.device)
+    return out
+
+
 def fm_arrays(fm):
     """What TorchFM needs from an FMIndexData (either package's: the on-disk
     format is shared): scalars, numpy arrays, and `bwt_codes`, a callable that
@@ -259,28 +319,34 @@ def fm_arrays(fm):
 
 
 class TorchFM(nn.Module):
-    """Device mirror of FMIndexData (int32) with the kernels' plain twins."""
+    """Device mirror of FMIndexData with the kernels' plain twins."""
 
     def __init__(self, fields, device="cuda", serve_layout="plain",
-                 _generic=False):
-        """`_generic` puts a sigma-4 index on the generic layout too, which no
-        entry point does: the tests hold the 2-bit streams to DeviceFM's
-        run-block mirrors that way."""
+                 force_idtype=None, _generic=False):
+        """`force_idtype` ("int32" / "int64") overrides the index type that n
+        picks, as DeviceFM's does.  `_generic` puts a sigma-4 index on the
+        generic layout too, which no entry point does: the tests hold the
+        2-bit streams to DeviceFM's run-block mirrors that way."""
         super().__init__()
         device = resolve_device(device)
         if serve_layout not in SERVE_LAYOUTS:
             raise ValueError("serve_layout must be one of %s" % (SERVE_LAYOUTS,))
         n = int(fields["n"])
-        if n >= INT32_LIMIT:
-            raise NotImplementedError(
-                "indexes with n >= 2^31 - 8 need int64 lanes, not ported yet "
-                "(ROADMAP queue 1 item 8, kernel K9)")
+        self.idtype = index_dtype(n, force_idtype)
+        idx64 = self.idtype == torch.int64
+        npd = np.int64 if idx64 else np.int32
+        rowmap = fields["rowmap"]
+        if rowmap is not None and n >= 1 << 31:
+            raise ValueError(
+                "a rowmap over n >= 2^31 rows would wrap its int32 row ids: "
+                "load the index with --no-rowmap (or rebuild it with --no-row-map)")
         self.n = n
         self.sigma = int(fields["sigma"])
         # the fused-row layouts hold 2-bit symbols; everything else ranks
-        # through the run-block mirrors (DeviceFM.fast)
-        self.layout = serve_layout if self.sigma == 4 and not _generic \
-            else "generic"
+        # through the run-block mirrors (DeviceFM.fast).  The mega-table's
+        # row math is 32-bit: an int64 index serves "runblock" as generic.
+        generic = self.sigma != 4 or _generic or (idx64 and serve_layout == "runblock")
+        self.layout = "generic" if generic else serve_layout
         self.code_bits = int(fields["code_bits"])
         self.pw = int(fields["precompute_width"])
         self.first_isa = int(fields["first_isa"])
@@ -314,25 +380,26 @@ class TorchFM(nn.Module):
                     "(%d and %d bits): the kernels read both with one width"
                     % (fields["lit_width"], fields["run_width"]))
             self.ind = TorchBitvector(fields["ind_words"], fields["ind_cum"],
-                                      fields["ind_n"], device, self.account)
+                                      fields["ind_n"], device, self.account, npd)
             self.lit = TorchPacked(fields["lit_words"], fields["lit_occ"],
-                                   fields["lit_width"], self.lit_n, device, self.account)
+                                   fields["lit_width"], self.lit_n, device,
+                                   self.account, npd)
             self.run = TorchPacked(fields["run_words"], fields["run_occ"],
-                                   fields["run_width"], self.run_n, device, self.account)
+                                   fields["run_width"], self.run_n, device,
+                                   self.account, npd)
         buf("rows", rows)
         buf("mega", mega)
         buf("ftab", np.stack([fields["ftab_start"], fields["ftab_len"]],
-                             axis=1).astype(np.int32).reshape(-1))
-        buf("psum", np.asarray(fields["psum"]).astype(np.int32))
-        buf("sampled_sa", np.asarray(fields["sampled_sa"]).astype(np.int32))
+                             axis=1).astype(npd).reshape(-1))
+        buf("psum", np.asarray(fields["psum"]).astype(npd))
+        buf("sampled_sa", np.asarray(fields["sampled_sa"]).astype(npd))
         sel = fields["selected_rows"]
         has_sel = sel is not None and len(sel) > 0
-        buf("sel_rows", np.asarray(sel).astype(np.int32) if has_sel else None)
-        buf("sel_vals", np.asarray(fields["selected_vals"]).astype(np.int32)
+        buf("sel_rows", np.asarray(sel).astype(npd) if has_sel else None)
+        buf("sel_vals", np.asarray(fields["selected_vals"]).astype(npd)
             if has_sel else None)
         end = fields["end_marker_sa"] if fields["has_end_marker"] else None
-        buf("end_marker_sa", None if end is None else np.asarray(end).astype(np.int32))
-        rowmap = fields["rowmap"]
+        buf("end_marker_sa", None if end is None else np.asarray(end).astype(npd))
         buf("rowmap", None if rowmap is None else
             np.asarray(rowmap).astype(np.int32))
 
@@ -342,8 +409,13 @@ class TorchFM(nn.Module):
             self.traffic += int(nbytes())
 
     @classmethod
-    def from_index(cls, fm, device="cuda", serve_layout="plain"):
-        return cls(fm_arrays(fm), device, serve_layout)
+    def from_index(cls, fm, device="cuda", serve_layout="plain", force_idtype=None):
+        return cls(fm_arrays(fm), device, serve_layout, force_idtype)
+
+    @property
+    def isz(self):
+        """Bytes of one position or count of the index type."""
+        return 8 if self.idtype == torch.int64 else 4
 
     @property
     def device(self):
@@ -361,7 +433,8 @@ class TorchFM(nn.Module):
 
     def _row_words(self, pos):
         """uint32 words (as int64) of the wide row holding pos's rank."""
-        self.account(lambda: (4 + 4 * _ceil_div(
+        occ_bytes = 8 if self.idtype == torch.int64 else 4   # + the hi word
+        self.account(lambda: (occ_bytes + 4 * _ceil_div(
             torch.remainder(pos + 1, WIDE_BLOCK), 16)).sum())
         return self.rows[torch.div(pos + 1, WIDE_BLOCK,
                                    rounding_mode="floor")].long() & _M32
@@ -387,19 +460,25 @@ class TorchFM(nn.Module):
                         row.gather(1, (WIDE_OFF + widx)[:, None])[:, 0])
         return (w >> ((pos & 15) * 2)) & 3
 
+    def _wide_occ(self, row, c):
+        """occ checkpoint of c from a wide row (DeviceFM._wide_occ): the lo
+        word, and on an int64 index bits 32..39 from the WIDE_HI byte."""
+        occ = row.gather(1, c[:, None])[:, 0]
+        if self.idtype == torch.int64:
+            occ = occ + (((row[:, WIDE_HI] >> (8 * c)) & 0xFF) << 32)
+        return occ
+
     def _plain_rank_sym(self, c, pos):
         row = self._row_words(pos)
-        occ = row.gather(1, c[:, None])[:, 0]
         rank = torch.where(pos < 0, torch.zeros_like(pos),
-                           occ + self._prefix_count(row, c, pos + 1))
+                           self._wide_occ(row, c) + self._prefix_count(row, c, pos + 1))
         return rank, self._sym(row, pos)
 
     def _plain_lf(self, p):
         """LF from one wide row (DeviceFM._plain_lf)."""
         row = self._row_words(p)
         sym = self._sym(row, p)
-        rank = row.gather(1, sym[:, None])[:, 0] + \
-            self._prefix_count(row, sym, p + 1)
+        rank = self._wide_occ(row, sym) + self._prefix_count(row, sym, p + 1)
         corr = ((sym == self.last_chr) & (p < self.first_isa)).long()
         return self.psum.long()[sym] + rank + corr - 1
 
@@ -584,31 +663,34 @@ class TorchFM(nn.Module):
         first = rows == self.first_isa
         samp = ~first & (torch.remainder(rows, self.sample_rate) == 0)
         slot = torch.div(rows, self.sample_rate, rounding_mode="floor")
-        val = torch.where(samp, self.sampled_sa.long()[
-            slot.clamp(0, len(self.sampled_sa) - 1)], torch.zeros_like(rows))
+        val = torch.where(samp, self.sampled_sa[
+            slot.clamp(0, len(self.sampled_sa) - 1)].long(), torch.zeros_like(rows))
         val = torch.where(first, torch.full_like(rows, self.adjusted_sa0), val)
         if self.sel_rows is not None:
             is_sel, pos = self._sel_lookup(rows)
             val = torch.where(~first & ~samp & is_sel,
-                              self.sel_vals.long()[pos], val)
+                              self.sel_vals[pos].long(), val)
         elif self.end_marker_sa is not None:
             m = len(self.end_marker_sa)
             val = torch.where(~first & ~samp & (rows < m),
-                              self.end_marker_sa.long()[rows.clamp(0, m - 1)], val)
+                              self.end_marker_sa[rows.clamp(0, m - 1)].long(), val)
         return val
 
     def ftab_entry(self, kmer):
         """(ftab_start, ftab_len) of packed pw-mers, the key clipped to the
         table."""
         kmer = kmer.clamp(0, self.ftab_size - 1)
-        return self.ftab.long()[2 * kmer], self.ftab.long()[2 * kmer + 1]
+        return self.ftab[2 * kmer].long(), self.ftab[2 * kmer + 1].long()
 
 
 # ------------------------------------------- rank, extend, LF: the wrappers
 
+# Every tensor of these three is in the index type (idtype): symbols too, so
+# that rank_probe.cu reads one type.
+
 def _probe(fm, mode, a, b, c):
     M = len(a)
-    out = torch.empty(2, M, dtype=torch.int32, device=a.device)
+    out = torch.empty(2, M, dtype=fm.idtype, device=a.device)
     if M:
         kernels.launch("rank_probe", fm, mode, a, b, c, M, out[0], out[1])
     return out
@@ -616,33 +698,32 @@ def _probe(fm, mode, a, b, c):
 
 def rank_sym(fm, c, pos):
     """Wrapper of the layouts' rank (DeviceFM._fused_rank_sym / bwt_rank +
-    bwt_access): c, pos int32 [M], pos >= -1 -> int32 (rank, symbol)."""
-    _check(fm, "rank_sym", c=(c, torch.int32), pos=(pos, torch.int32))
+    bwt_access): c, pos [M], pos >= -1 -> (rank, symbol)."""
+    _check(fm, "rank_sym", c=(c, fm.idtype), pos=(pos, fm.idtype))
     if c.device.type == "cpu":
         r, s = fm.rank_sym(c.long(), pos.long())
-        return r.int(), s.int()
+        return r.to(fm.idtype), s.to(fm.idtype)
     out = _probe(fm, 0, c, pos, pos)
     return out[0], out[1]
 
 
 def backward_extend(fm, c, sp, ep):
-    """Wrapper of BackwardExtend (DeviceFM.backward_extend): int32 [M] each,
-    0 <= sp <= ep < n -> int32 (nsp, nep)."""
-    _check(fm, "backward_extend", c=(c, torch.int32), sp=(sp, torch.int32),
-           ep=(ep, torch.int32))
+    """Wrapper of BackwardExtend (DeviceFM.backward_extend): [M] each,
+    0 <= sp <= ep < n -> (nsp, nep)."""
+    _check(fm, "backward_extend", c=(c, fm.idtype), sp=(sp, fm.idtype),
+           ep=(ep, fm.idtype))
     if c.device.type == "cpu":
         nsp, nep = fm.backward_extend(c.long(), sp.long(), ep.long())
-        return nsp.int(), nep.int()
+        return nsp.to(fm.idtype), nep.to(fm.idtype)
     out = _probe(fm, 1, c, sp, ep)
     return out[0], out[1]
 
 
 def lf(fm, p):
-    """Wrapper of the LF-mapping (DeviceFM.lf): p int32 [M] in [0, n) ->
-    int32 [M]."""
-    _check(fm, "lf", p=(p, torch.int32))
+    """Wrapper of the LF-mapping (DeviceFM.lf): p [M] in [0, n) -> [M]."""
+    _check(fm, "lf", p=(p, fm.idtype))
     if p.device.type == "cpu":
-        return fm.lf(p.long()).int()
+        return fm.lf(p.long()).to(fm.idtype)
     return _probe(fm, 2, p, p, p)[0]
 
 
@@ -692,8 +773,8 @@ def chain_search_lanes_plain(fm, codes, lengths, mhl, H):
     are the same, and this version keeps the k-mer in an int64, so it has no
     pack limit.
 
-    codes [B, L] (255 invalid), lengths [B] -> (hits int32 [B, H, 4] of
-    (sp, ep, l, off), nhits int32 [B])."""
+    codes [B, L] (255 invalid), lengths [B] -> (hits [B, H, 4] of (sp, ep,
+    l, off) in the index type, nhits int32 [B])."""
     dev = codes.device
     codes = codes.long()
     B, L = codes.shape
@@ -728,7 +809,7 @@ def chain_search_lanes_plain(fm, codes, lengths, mhl, H):
         start_l = torch.where(ftab_ok, pw, lfail)
 
         c_invalid = c == 255
-        fm.account(lambda: 8 * (start & (tv >= pw)).sum())
+        fm.account(lambda: 2 * fm.isz * (start & (tv >= pw)).sum())
         nsp, nep = _extend_lanes(fm, extend & ~c_invalid, c, sp, ep)
         ext_fail = extend & (c_invalid | (nsp > nep))
         ext_ok = extend & ~ext_fail
@@ -756,13 +837,14 @@ def chain_search_lanes_plain(fm, codes, lengths, mhl, H):
         phase = torch.where(fin, 0, torch.where(go_extend, 1, phase))
         rem = torch.where(fin, rem - (fin_l + 1), rem)
         l = torch.where(fin, 0, l)
-    return hits.int(), nh.int()
+    return hits.to(fm.idtype), nh.int()
 
 
 def chain_search_lanes(fm, codes, lengths, mhl, H):
     """K1 wrapper for ready-made code lanes (the protein path's six frames a
-    read): codes uint8 [B, L] (255 invalid), lengths int32 [B] -> (hits int32
-    [B, H, 4] of (sp, ep, l, off), nhits int32 [B])."""
+    read, the non-fused engine's strand lanes): codes uint8 [B, L] (255
+    invalid), lengths int32 [B] -> (hits [B, H, 4] of (sp, ep, l, off) in
+    the index type, nhits int32 [B])."""
     _check(fm, "chain_search_lanes", codes=(codes, torch.uint8),
            lengths=(lengths, torch.int32))
     if codes.dim() != 2 or lengths.shape != (codes.shape[0],):
@@ -770,7 +852,7 @@ def chain_search_lanes(fm, codes, lengths, mhl, H):
     if codes.device.type == "cpu":
         return chain_search_lanes_plain(fm, codes, lengths, mhl, H)
     B, L = codes.shape
-    hits = torch.empty(B, H, 4, dtype=torch.int32, device=codes.device)
+    hits = torch.empty(B, H, 4, dtype=fm.idtype, device=codes.device)
     nhits = torch.empty(B, dtype=torch.int32, device=codes.device)
     if B:
         kernels.launch("chain_search_lanes", fm, codes, lengths, B, L, mhl, H,
@@ -789,11 +871,11 @@ def chain_variant(fm, lanes):
 def resolve_rows_plain(fm, rows, valid):
     """SA row -> stored value (DeviceFM._resolve_rows_impl): one rowmap
     gather, or the LF walk to a stored row.  rows [M], valid [M] bool ->
-    int32 [M] (0 on invalid lanes)."""
+    [M] in the index type (0 on invalid lanes)."""
     rows = rows.long()
     if fm.rowmap is not None:
         fm.account(lambda: 4 * valid.sum())
-        val = fm.rowmap.long()[rows.clamp(0, fm.n - 1)]
+        val = fm.rowmap[rows.clamp(0, fm.n - 1)].long()
     else:
         cur = torch.where(valid, rows, torch.zeros_like(rows))
         pend = valid.clone()
@@ -803,14 +885,15 @@ def resolve_rows_plain(fm, rows, valid):
                 break
             idx = pend.nonzero()[:, 0]
             cur[idx] = fm.lf(cur[idx])
-        fm.account(lambda: 4 * valid.sum())
+        fm.account(lambda: fm.isz * valid.sum())
         val = fm.sampled_value(cur)
-    return torch.where(valid, val, torch.zeros_like(val)).int()
+    return torch.where(valid, val, torch.zeros_like(val)).to(fm.idtype)
 
 
 def resolve_rows(fm, rows, valid):
-    """K2 wrapper: rows int32 [M], valid bool [M] -> int32 [M]."""
-    _check(fm, "resolve_rows", rows=(rows, torch.int32), valid=(valid, torch.bool))
+    """K2 wrapper: rows [M] in the index type, valid bool [M] -> [M] in the
+    index type."""
+    _check(fm, "resolve_rows", rows=(rows, fm.idtype), valid=(valid, torch.bool))
     if rows.shape != valid.shape or rows.dim() != 1:
         raise ValueError("rows and valid must be 1-D of one length")
     if rows.device.type == "cpu":
@@ -826,7 +909,7 @@ def resolve_rows(fm, rows, valid):
 def prefix_search_plain(fm, codes, ms):
     """Longest-suffix backward search of codes[:, :ms] per lane
     (DeviceFM._prefix_search_impl).  codes [B, L] (255 invalid), ms [B] ->
-    int32 (l, sp, ep) [B] each."""
+    (l, sp, ep) [B] each, in the index type."""
     dev = codes.device
     codes = codes.long()
     B, L = codes.shape
@@ -840,7 +923,7 @@ def prefix_search_plain(fm, codes, ms):
     short_tail = ~too_short & (tv < pw)
     fsp, fl = fm.ftab_entry(kmer[lane, msc])
     ftab_empty = ~too_short & ~short_tail & (fl == 0)
-    fm.account(lambda: 8 * (~too_short & ~short_tail).sum())
+    fm.account(lambda: 2 * fm.isz * (~too_short & ~short_tail).sum())
     l = torch.where(too_short, 0, torch.where(
         short_tail, tv, torch.where(ftab_empty, pw - 1, pw)))
     running = ~too_short & ~short_tail & ~ftab_empty
@@ -857,19 +940,19 @@ def prefix_search_plain(fm, codes, ms):
         ep = torch.where(ok, nep, ep)
         l = torch.where(ok, l + 1, l)
         running = running & ok
-    return l.int(), sp.int(), ep.int()
+    return l.to(fm.idtype), sp.to(fm.idtype), ep.to(fm.idtype)
 
 
 def prefix_search(fm, codes, ms):
     """K5 wrapper: codes uint8 [B, L] (255 invalid), ms int32 [B] ->
-    int32 (l, sp, ep) [B] each."""
+    (l, sp, ep) [B] each, in the index type."""
     _check(fm, "prefix_search", codes=(codes, torch.uint8), ms=(ms, torch.int32))
     if codes.dim() != 2 or ms.shape != (codes.shape[0],):
         raise ValueError("codes must be [B, L] and ms [B]")
     if codes.device.type == "cpu":
         return prefix_search_plain(fm, codes, ms)
     B, L = codes.shape
-    out = torch.empty(3, B, dtype=torch.int32, device=codes.device)
+    out = torch.empty(3, B, dtype=fm.idtype, device=codes.device)
     if B:
         kernels.launch("prefix_search", fm, codes, ms, B, L, out)
     return out[0], out[1], out[2]

@@ -7,10 +7,14 @@ into kernels/_build/ (git-ignored) at first use, all in parallel, and
 bound with ctypes.  Nothing here is imported or compiled when the package is
 imported, and there is no fallback: a missing nvcc or a failed build raises.
 
-LAUNCHES counts the launches each wrapper made, under the name
-"<kernel>:<rank layout>[:<variant>...]" (for example "chain_search:plain",
-"chain_search:generic:lanes", "chain_search:plain:wideftab"); callers reset it
-with reset_launches().
+LAUNCHES counts the launches each wrapper made, under the name of the
+instantiation, "<kernel>:<rank layout>[:i64][:<variant>...]" (for example
+"chain_search:plain", "chain_search:generic:lanes",
+"chain_search:plain:wideftab", "resolve_rows:generic:i64"; ":i64" marks an
+int64 index, kernel K9); callers reset it with reset_launches().
+
+dep_gather (K12) is a microbenchmark of its own, with no FMView: it is
+launched through launch_raw.
 """
 
 import collections
@@ -25,7 +29,8 @@ import time
 import torch
 
 # C entry point -> (the source that holds it, its arguments after the leading
-# `const FMView*` and before the trailing stream: P = device pointer, i = int)
+# `const FMView*` (none for dep_gather) and before the trailing stream:
+# P = device pointer, i = int)
 ENTRIES = {
     # pack2 vmask lengths U L mhl H hits nhits
     "chain_search": ("chain_search", "PPPiiiiPP"),
@@ -39,6 +44,8 @@ ENTRIES = {
     "prefix_search": ("prefix_search", "PPiiP"),
     # mode a b c M out0 out1
     "rank_probe": ("rank_probe", "iPPPiPP"),
+    # table nrow idx B iters out (no FMView)
+    "dep_gather": ("dep_gather", "PiPiiP"),
 }
 KERNELS = tuple(dict.fromkeys(src for src, _ in ENTRIES.values()))
 LAYOUT_IDS = {"plain": 0, "runblock": 1, "generic": 2}
@@ -117,15 +124,15 @@ def _lib(name):
 
 
 class FMView(ctypes.Structure):
-    """Mirror of `struct FMView` in csrc/fm_device.cuh."""
+    """Mirror of `struct FMView` in csrc/fm_view.cuh."""
     _POINTERS = ("rows", "mega", "ind_words", "ind_cum", "lit_words", "lit_occ",
                  "run_words", "run_occ", "ftab", "psum", "sampled_sa", "sel_rows",
                  "sel_vals", "end_marker_sa", "rowmap")
-    _INTS = ("layout", "n", "first_isa", "last_chr", "sample_rate", "adjusted_sa0",
-             "pw", "code_bits", "sigma", "n_sel", "n_end", "b", "b_lt_n", "width",
-             "lit_n", "run_n", "m_lit", "m_run")
+    _INT64S = ("ftab_size", "n", "first_isa", "adjusted_sa0", "lit_n", "run_n")
+    _INTS = ("layout", "idx64", "last_chr", "sample_rate", "pw", "code_bits", "sigma",
+             "n_sel", "n_end", "b", "b_lt_n", "width", "m_lit", "m_run")
     _fields_ = ([(p, ctypes.c_void_p) for p in _POINTERS]
-                + [("ftab_size", ctypes.c_int64)]
+                + [(i, ctypes.c_int64) for i in _INT64S]
                 + [(i, ctypes.c_int32) for i in _INTS])
 
 
@@ -143,7 +150,8 @@ def _fm_view(fm):
         ftab=ptr(fm.ftab), psum=ptr(fm.psum), sampled_sa=ptr(fm.sampled_sa),
         sel_rows=ptr(fm.sel_rows), sel_vals=ptr(fm.sel_vals),
         end_marker_sa=ptr(fm.end_marker_sa), rowmap=ptr(fm.rowmap),
-        ftab_size=fm.ftab_size, layout=LAYOUT_IDS[fm.layout], n=fm.n,
+        ftab_size=fm.ftab_size, layout=LAYOUT_IDS[fm.layout],
+        idx64=int(fm.idtype == torch.int64), n=fm.n,
         first_isa=fm.first_isa, last_chr=fm.last_chr, sample_rate=fm.sample_rate,
         adjusted_sa0=fm.adjusted_sa0, pw=fm.pw, code_bits=fm.code_bits,
         sigma=fm.sigma,
@@ -154,11 +162,33 @@ def _fm_view(fm):
         lit_n=fm.lit_n, run_n=fm.run_n, m_lit=fm.m_lit, m_run=fm.m_run)
 
 
+def instantiation(kernel, fm, variant=()):
+    """The launch-count name of `kernel` on the index `fm`."""
+    return ":".join((kernel, fm.layout) + ("i64",) * (fm.idtype == torch.int64)
+                    + tuple(variant))
+
+
 def launch(entry, fm, *args, variant=()):
     """Launch the C entry point `entry` on the current stream of the index's
     device with `args` in the order of ENTRIES[entry]; the kernel is the
-    instantiation for the index's rank layout.  `variant` names what else the
-    wrapper's arguments select, for the launch count."""
+    instantiation for the index's rank layout and index type.  `variant`
+    names what else the wrapper's arguments select, for the launch count."""
+    _call(entry, args, fm.device, lambda: _fm_view(fm))
+    with _LOCK:
+        LAUNCHES[instantiation(ENTRIES[entry][0], fm, variant)] += 1
+
+
+def launch_raw(entry, device, *args):
+    """Launch a C entry point that takes no FMView (dep_gather), counted under
+    the kernel's name."""
+    _call(entry, args, device, None)
+    with _LOCK:
+        LAUNCHES[ENTRIES[entry][0]] += 1
+
+
+def _call(entry, args, device, view):
+    """Check the arguments, then call `<entry>_launch` (with the FMView that
+    view() makes first, where view is given) and raise on a CUDA error."""
     kernel, sig = ENTRIES[entry]
     if len(args) != len(sig):
         raise TypeError("%s takes %d arguments, got %d" % (entry, len(sig), len(args)))
@@ -170,19 +200,17 @@ def launch(entry, fm, *args, variant=()):
             cargs.append(a.data_ptr())
         else:
             cargs.append(int(a))
+    lead = () if view is None else (ctypes.byref(view()),)
     lib = _lib(kernel)
     fn = getattr(lib, entry + "_launch")
-    fn.argtypes = ([ctypes.POINTER(FMView)]
+    fn.argtypes = ([ctypes.POINTER(FMView)] * len(lead)
                    + [ctypes.c_void_p if k == "P" else ctypes.c_int for k in sig]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    rc = fn(ctypes.byref(_fm_view(fm)), *cargs,
-            torch.cuda.current_stream(fm.device).cuda_stream)
+    rc = fn(*lead, *cargs, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         err = lib.cfr_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         raise RuntimeError("%s launch failed: CUDA error %d (%s)"
                            % (entry, rc, err(rc).decode()))
-    with _LOCK:
-        LAUNCHES[":".join((kernel, fm.layout) + tuple(variant))] += 1

@@ -16,10 +16,15 @@
 // run-block layout, up to five fetches on the generic one), so the kernel is
 // latency- and bytes-bound, not compute-bound.  Design: one thread per lane
 // runs its START/EXTEND state machine to completion with no lockstep.  The
-// kernel is a template over the rank layout and the code source:
+// kernel is a template over the rank layout (with its index type) and the
+// code source:
 //   PackedDna  lane 2u reads read u forward, lane 2u + 1 its reverse
 //              complement as 3 - code[len - 1 - i], straight from pack2/vmask
-//   CodeLanes  ready-made uint8 code lanes (protein: six frames a read)
+//   CodeLanes  ready-made uint8 code lanes (protein: six frames a read; the
+//              non-fused engine's strand lanes, reads of any length)
+// With an int64 index (kernel K9, the int64 `ftab2` of fm/device.py:282-293)
+// sp, ep and the hits are int64 and the ftab pair is one 16-byte load; read
+// positions stay 32-bit.
 #include "fm_device.cuh"
 
 namespace {
@@ -52,12 +57,13 @@ struct PackedDna {
 
 template <class Layout, class Reads>
 __global__ void chain_search_kernel(FMView f, Reads reads, int B, int mhl, int H,
-                                    int32_t* __restrict__ hits,
+                                    typename Layout::Idx* __restrict__ hits,
                                     int32_t* __restrict__ nhits) {
+  using Idx = typename Layout::Idx;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const typename Reads::Lane rd = reads.lane(b);
-  int4* out = reinterpret_cast<int4*>(hits) + static_cast<int64_t>(b) * H;
+  const int64_t out = static_cast<int64_t>(b) * H;   // this lane's first hit
   const int32_t pw = f.pw;
   const int32_t length = rd.len;
   int32_t rem = length, nh = 0;
@@ -65,10 +71,11 @@ __global__ void chain_search_kernel(FMView f, Reads reads, int B, int mhl, int H
     // ---- START at prefix length rem: the pw-mer ending at rem - 1 ----
     uint64_t kmer;
     const int32_t tv = start_kmer(f, rd, rem, &kmer);
-    int32_t fsp = 1, flen = 0;
+    Idx fsp = 1, flen = 0;
     if (tv >= pw) ftab_entry(f, kmer, &fsp, &flen);
     const bool ftab_ok = tv >= pw && flen > 0 && rem >= pw;
-    int32_t fin_l, fin_sp, fin_ep;
+    int32_t fin_l;
+    Idx fin_sp, fin_ep;
     if (!ftab_ok) {
       // 0 below pw, the valid run for an invalid char in the window, pw - 1
       // for an empty range
@@ -81,10 +88,11 @@ __global__ void chain_search_kernel(FMView f, Reads reads, int B, int mhl, int H
       fin_ep = fsp + flen - 1;
     } else {
       // ---- EXTEND one char at a time until it fails or covers rem ----
-      int32_t sp = fsp, ep = fsp + flen - 1, l = pw;
+      Idx sp = fsp, ep = fsp + flen - 1;
+      int32_t l = pw;
       while (true) {
         const int32_t c = rd.code(rem - l - 1);
-        int32_t nsp = 1, nep = 0;
+        Idx nsp = 1, nep = 0;
         if (c != 255) Layout::backward_extend(f, c, sp, ep, &nsp, &nep);
         if (c == 255 || nsp > nep) {   // failed: the chain is [sp, ep] at l
           fin_l = l;
@@ -105,20 +113,21 @@ __global__ void chain_search_kernel(FMView f, Reads reads, int B, int mhl, int H
     }
     // hits beyond H are dropped, but the lane keeps walking
     if (fin_l >= mhl && fin_sp <= fin_ep && nh < H)
-      out[nh++] = make_int4(fin_sp, fin_ep, fin_l, length - rem);
+      store_hit<Idx>(hits, out + nh++, fin_sp, fin_ep, fin_l, length - rem);
     rem -= fin_l + 1;
   }
-  for (int m = nh; m < H; ++m) out[m] = make_int4(0, 0, 0, 0);
+  for (int m = nh; m < H; ++m) store_hit<Idx>(hits, out + m, 0, 0, 0, 0);
   nhits[b] = nh;
 }
 
 template <class Reads>
-int launch(const FMView* f, const Reads& reads, int B, int mhl, int H, int32_t* hits,
+int launch(const FMView* f, const Reads& reads, int B, int mhl, int H, void* hits,
            int32_t* nhits, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
-  CFR_DISPATCH_LAYOUT(f, chain_search_kernel<Layout, Reads>
-                      <<<blocks, threads, 0, stream>>>(*f, reads, B, mhl, H, hits, nhits));
+  CFR_DISPATCH_LAYOUT(f, chain_search_kernel<Layout, Reads><<<blocks, threads, 0, stream>>>(
+                             *f, reads, B, mhl, H, static_cast<typename Layout::Idx*>(hits),
+                             nhits));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -126,14 +135,14 @@ int launch(const FMView* f, const Reads& reads, int B, int mhl, int H, int32_t* 
 
 extern "C" int chain_search_launch(const FMView* f, const uint8_t* pack2,
                                    const uint8_t* vmask, const int32_t* lengths, int U,
-                                   int L, int mhl, int H, int32_t* hits, int32_t* nhits,
+                                   int L, int mhl, int H, void* hits, int32_t* nhits,
                                    cudaStream_t stream) {
   return launch(f, PackedDna{pack2, vmask, lengths, L}, 2 * U, mhl, H, hits, nhits, stream);
 }
 
 extern "C" int chain_search_lanes_launch(const FMView* f, const uint8_t* codes,
                                          const int32_t* lengths, int B, int L, int mhl,
-                                         int H, int32_t* hits, int32_t* nhits,
+                                         int H, void* hits, int32_t* nhits,
                                          cudaStream_t stream) {
   return launch(f, CodeLanes{codes, lengths, L}, B, mhl, H, hits, nhits, stream);
 }

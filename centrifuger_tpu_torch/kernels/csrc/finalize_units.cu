@@ -16,7 +16,10 @@
 // (there are at most 4 * H, read straight from the chain output), writes the
 // first W expanded rows to shared memory, lanes 0..W-1 resolve them in
 // parallel, and lane 0 finishes the unit on the W rows in registers.  A
-// template over the rank layout (the inline resolve's LF walk).
+// template over the rank layout (the inline resolve's LF walk) and its index
+// type: the hits' sp / ep, the expanded rows and the striding are int64 on an
+// int64 index (kernel K9); the resolved sequence ids and the packed rows are
+// int32, as in the JAX program.
 #include "fm_device.cuh"
 
 namespace {
@@ -30,20 +33,23 @@ struct Slots {
   int k[4];       // strand record index: plus = 1, minus = 0
 };
 
-__device__ int32_t lane_score(const int4* hits, const int32_t* nhits, int lane, int H,
-                              int mhl, int adj) {
-  const int4* h = hits + (int64_t)lane * H;
+template <class Idx>
+__device__ int32_t lane_score(const Idx* hits, const int32_t* nhits, int lane, int H, int mhl,
+                              int adj) {
   int32_t s = 0;
-  for (int m = 0; m < nhits[lane]; ++m)
-    if (h[m].z >= mhl) s += (h[m].z - adj) * (h[m].z - adj);
+  for (int m = 0; m < nhits[lane]; ++m) {
+    const int32_t l = load_hit(hits, (int64_t)lane * H + m).l;
+    if (l >= mhl) s += (l - adj) * (l - adj);
+  }
   return s;
 }
 
 // The protein path's frame choice for one read and strand: of lanes lane0,
 // +1, +2 the one with the largest nhits * score; the best starts at 0 and
 // only a strictly larger value replaces it, so ties keep the earlier frame.
-__device__ int chosen_frame(const int4* hits, const int32_t* nhits, int lane0, int H,
-                            int mhl, int adj) {
+template <class Idx>
+__device__ int chosen_frame(const Idx* hits, const int32_t* nhits, int lane0, int H, int mhl,
+                            int adj) {
   int32_t best = 0;
   int tag = 0;
   for (int fr = 0; fr < 3; ++fr) {
@@ -56,24 +62,27 @@ __device__ int chosen_frame(const int4* hits, const int32_t* nhits, int lane0, i
   return lane0 + tag;
 }
 
-// striding of one hit: rows to resolve and the forward-pass count
-__device__ __forceinline__ void hit_counts(int32_t sp, int32_t ep, int32_t me, int32_t* cnt,
-                                           int32_t* step, int32_t* cf, bool* simple) {
-  const int32_t rng = ep - sp + 1;
+// striding of one hit: rows to resolve (at most me + 1 where it strides)
+// and the forward-pass count
+template <class Idx>
+__device__ __forceinline__ void hit_counts(Idx sp, Idx ep, int32_t me, int32_t* cnt, Idx* step,
+                                           Idx* cf, bool* simple) {
+  const Idx rng = ep - sp + 1;
   *simple = rng <= me;
-  *step = max((rng + me - 1) / me, 1);
+  *step = tmax((rng + me - 1) / me, Idx(1));
   *cf = (rng + *step - 1) / *step;
-  const int32_t cb = min((ep - sp) / *step + 1, max(1, me - *cf));
-  *cnt = *simple ? rng : *cf + cb;
+  const Idx cb = tmin((ep - sp) / *step + 1, tmax(Idx(1), me - *cf));
+  *cnt = static_cast<int32_t>(*simple ? rng : *cf + cb);
 }
 
 template <class Layout>
-__global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
+__global__ void finalize_units_kernel(FMView f, const typename Layout::Idx* __restrict__ hits,
                                       const int32_t* __restrict__ nhits, int Q, int nr, int H,
                                       int mhl, int me, int k_out, int protein,
                                       int32_t* __restrict__ packed) {
+  using Idx = typename Layout::Idx;
   const int adj = protein ? 5 : 15;   // _scoreHitLenAdjust
-  __shared__ int32_t s_rows[WARPS][W];
+  __shared__ Idx s_rows[WARPS][W];
   __shared__ int32_t s_seq[WARPS][W];
   __shared__ int32_t s_nvalid[WARPS];
   const int wid = threadIdx.x >> 5, ln = threadIdx.x & 31;
@@ -123,22 +132,22 @@ __global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
     int prev_k = -1;
     for (int i = 0; i < sl.n; ++i) {
       if (sl.lane[i] < 0) continue;
-      const int4* h = hits + (int64_t)sl.lane[i] * H;
       const int nh = nhits[sl.lane[i]];
       for (int m = 0; m < nh; ++m) {
-        const int4 e = h[m];
-        int32_t cnt, step, cf;
+        const Hit<Idx> e = load_hit(hits, (int64_t)sl.lane[i] * H + m);
+        int32_t cnt;
+        Idx step, cf;
         bool simple;
-        hit_counts(e.x, e.y, me, &cnt, &step, &cf, &simple);
+        hit_counts(e.sp, e.ep, me, &cnt, &step, &cf, &simple);
         if (prev_k >= 0 && prev_k != sl.k[i]) mix = true;
         prev_k = sl.k[i];
         for (int32_t j = total; j < min(total + cnt, W); ++j) {
-          const int32_t pos = j - total;
-          s_rows[wid][j] = simple ? e.x + pos
-                           : (pos < cf ? e.x + pos * step : e.y - (pos - cf) * step);
+          const Idx pos = j - total;
+          s_rows[wid][j] = simple ? e.sp + pos
+                           : (pos < cf ? e.sp + pos * step : e.ep - (pos - cf) * step);
           r_s[j] = i * H + m;
           r_k[j] = sl.k[i];
-          r_l[j] = e.z;
+          r_l[j] = e.l;
         }
         total += cnt;
       }
@@ -147,7 +156,9 @@ __global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
   }
   __syncwarp();
   if (live_unit && ln < W)
-    s_seq[wid][ln] = ln < s_nvalid[wid] ? resolve_one<Layout>(f, s_rows[wid][ln]) : 0;
+    s_seq[wid][ln] = ln < s_nvalid[wid]
+                         ? static_cast<int32_t>(resolve_one<Layout>(f, s_rows[wid][ln]))
+                         : 0;
   __syncwarp();
   if (ln != 0 || !live_unit) return;
 
@@ -162,24 +173,24 @@ __global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
     int32_t prev_end = 0, prev_sid = 0;
     for (int i = 0; i < sl.n; ++i) {
       if (sl.lane[i] < 0) continue;
-      const int4* h = hits + (int64_t)sl.lane[i] * H;
       const int nh = nhits[sl.lane[i]];
       for (int m = 0; m < nh; ++m) {
-        const int4 e = h[m];
-        int32_t cnt, step, cf;
+        const Hit<Idx> e = load_hit(hits, (int64_t)sl.lane[i] * H + m);
+        int32_t cnt;
+        Idx step, cf;
         bool simple;
-        hit_counts(e.x, e.y, me, &cnt, &step, &cf, &simple);
-        const bool uniq = e.y == e.x;
+        hit_counts(e.sp, e.ep, me, &cnt, &step, &cf, &simple);
+        const bool uniq = e.ep == e.sp;
         const int32_t sid = seq[min(run, W - 1)];
         const bool merge = have_prev && !mix && uniq && prev_uniq && sl.k[i] == prev_k &&
-                           prev_end + 1 == e.w && sid == prev_sid;
+                           prev_end + 1 == e.off && sid == prev_sid;
         if (!merge) ++chain;
         for (int32_t j = run; j < min(run + cnt, W); ++j) r_chain[j] = chain;
         run += cnt;
         have_prev = true;
         prev_uniq = uniq;
         prev_k = sl.k[i];
-        prev_end = e.w + e.z;
+        prev_end = e.off + e.l;
         prev_sid = sid;
       }
     }
@@ -267,13 +278,13 @@ __global__ void finalize_units_kernel(FMView f, const int4* __restrict__ hits,
 
 }  // namespace
 
-extern "C" int finalize_units_launch(const FMView* f, const int32_t* hits,
+extern "C" int finalize_units_launch(const FMView* f, const void* hits,
                                      const int32_t* nhits, int Q, int nr, int H, int mhl,
                                      int me, int k_out, int protein, int32_t* packed,
                                      cudaStream_t stream) {
   const int blocks = (Q + WARPS - 1) / WARPS;
   CFR_DISPATCH_LAYOUT(f, finalize_units_kernel<Layout><<<blocks, WARPS * 32, 0, stream>>>(
-      *f, reinterpret_cast<const int4*>(hits), nhits, Q, nr, H, mhl, me, k_out, protein,
-      packed));
+      *f, static_cast<const typename Layout::Idx*>(hits), nhits, Q, nr, H, mhl, me, k_out,
+      protein, packed));
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,16 +2,21 @@
 // chain_search.cu, resolve_rows.cu, finalize_units.cu, prefix_search.cu and
 // rank_probe.cu goes through a rank layout: a struct with
 //
+//   Idx                         the index type, int32_t or int64_t
 //   rank_sym(f, c, pos, &sym)   BWT rank_inclusive(c, pos) and the symbol at
 //                               pos; pos >= -1, and -1 gives rank 0
 //   backward_extend(f, c, sp, ep, &nsp, &nep)   FMIndex::BackwardExtend
 //   lf(f, p)                    the LF-mapping of row p >= 0
 //
-// PlainLayout (rank_plain.cuh), MegaLayout (rank_mega.cuh) and GenericLayout
-// (rank_runblock.cuh) give the same values on the same index; the kernels are
-// templates over the layout and CFR_DISPATCH_LAYOUT picks the instantiation
-// from FMView::layout.  Each function is value-identical to its plain twin in
-// TorchFM and to centrifuger_tpu.fm.device.DeviceFM.
+// PlainLayout<Idx> (rank_plain.cuh), MegaLayout (rank_mega.cuh, int32 only)
+// and GenericLayout<Idx> (rank_runblock.cuh) give the same values on the same
+// index; the kernels are templates over the layout and CFR_DISPATCH_LAYOUT
+// picks the instantiation from FMView::layout and FMView::idx64.  The int64
+// instantiations are kernel K9 (centrifuger_tpu/fm/device.py DeviceFM's
+// idtype switch, :215-231): positions, ranks and the index tables in 64 bits,
+// symbols, read positions and table words in 32.  Each function is
+// value-identical to its plain twin in TorchFM and to
+// centrifuger_tpu.fm.device.DeviceFM.
 #pragma once
 #include "fm_view.cuh"
 #include "rank_mega.cuh"
@@ -21,37 +26,43 @@
 // BackwardExtend from a layout's rank_sym, with the displaced-last-char
 // corrections; the sp == ep shortcut reads the symbol of the same row fetch.
 template <class Layout>
-__device__ __forceinline__ void extend_by_rank_sym(const FMView& f, int32_t c, int32_t sp,
-                                                   int32_t ep, int32_t* nsp, int32_t* nep) {
-  const int32_t off = __ldg(f.psum + c);
+__device__ __forceinline__ void extend_by_rank_sym(const FMView& f, int32_t c,
+                                                   typename Layout::Idx sp,
+                                                   typename Layout::Idx ep,
+                                                   typename Layout::Idx* nsp,
+                                                   typename Layout::Idx* nep) {
+  using Idx = typename Layout::Idx;
+  const Idx off = tab<Idx>(f.psum, c);
+  const Idx fi = static_cast<Idx>(f.first_isa);
   int32_t sym_ep;
-  const int32_t r_sp = Layout::rank_sym(f, c, sp - 1, nullptr);
-  const int32_t r_ep = Layout::rank_sym(f, c, ep, &sym_ep);
+  const Idx r_sp = Layout::rank_sym(f, c, sp - 1, nullptr);
+  const Idx r_ep = Layout::rank_sym(f, c, ep, &sym_ep);
   const bool last = c == f.last_chr;
-  const int32_t s = off + r_sp + ((last && sp <= f.first_isa) ? 1 : 0);
+  const Idx s = off + r_sp + ((last && sp <= fi) ? 1 : 0);
   *nsp = s;
   if (sp == ep)
     *nep = s + (sym_ep == c ? 0 : -1);
   else
-    *nep = off + r_ep + ((last && ep < f.first_isa) ? 1 : 0) - 1;
+    *nep = off + r_ep + ((last && ep < fi) ? 1 : 0) - 1;
 }
 
+template <class Idx_>
 struct PlainLayout {
-  static __device__ __forceinline__ int32_t rank_sym(const FMView& f, int32_t c, int32_t pos,
-                                                     int32_t* sym) {
-    return plain_rank_sym(f, c, pos, sym);
+  using Idx = Idx_;
+  static __device__ __forceinline__ Idx rank_sym(const FMView& f, int32_t c, Idx pos,
+                                                 int32_t* sym) {
+    return plain_rank_sym<Idx>(f, c, pos, sym);
   }
-  static __device__ __forceinline__ void backward_extend(const FMView& f, int32_t c,
-                                                         int32_t sp, int32_t ep, int32_t* nsp,
-                                                         int32_t* nep) {
+  static __device__ __forceinline__ void backward_extend(const FMView& f, int32_t c, Idx sp,
+                                                         Idx ep, Idx* nsp, Idx* nep) {
     extend_by_rank_sym<PlainLayout>(f, c, sp, ep, nsp, nep);
   }
-  static __device__ __forceinline__ int32_t lf(const FMView& f, int32_t p) {
-    return plain_lf(f, p);
-  }
+  static __device__ __forceinline__ Idx lf(const FMView& f, Idx p) { return plain_lf<Idx>(f, p); }
 };
 
+// The mega-table's row math is 32-bit: int32 indexes only (DeviceFM.fast).
 struct MegaLayout {
+  using Idx = int32_t;
   static __device__ __forceinline__ int32_t rank_sym(const FMView& f, int32_t c, int32_t pos,
                                                      int32_t* sym) {
     return mega_rank_sym(f, c, pos, sym);
@@ -67,66 +78,85 @@ struct MegaLayout {
     mega_rank_sym(f, 0, p, &sym);
     const int32_t r = mega_rank_sym(f, sym, p, nullptr);
     const int32_t corr = (sym == f.last_chr && p < f.first_isa) ? 1 : 0;
-    return __ldg(f.psum + sym) + r + corr - 1;
+    return tab<int32_t>(f.psum, sym) + r + corr - 1;
   }
 };
 
+template <class Idx_>
 struct GenericLayout {
-  static __device__ __forceinline__ int32_t rank_sym(const FMView& f, int32_t c, int32_t pos,
-                                                     int32_t* sym) {
-    if (sym) *sym = bwt_access(f, max(pos, 0));
+  using Idx = Idx_;
+  static __device__ __forceinline__ Idx rank_sym(const FMView& f, int32_t c, Idx pos,
+                                                 int32_t* sym) {
+    if (sym) *sym = bwt_access(f, tmax(pos, Idx(0)));
     return pos < 0 ? 0 : bwt_rank(f, c, pos);
   }
-  static __device__ __forceinline__ void backward_extend(const FMView& f, int32_t c,
-                                                         int32_t sp, int32_t ep, int32_t* nsp,
-                                                         int32_t* nep) {
-    const int32_t off = __ldg(f.psum + c);
-    const int32_t s = off + fm_rank(f, c, sp, false);
+  static __device__ __forceinline__ void backward_extend(const FMView& f, int32_t c, Idx sp,
+                                                         Idx ep, Idx* nsp, Idx* nep) {
+    const Idx off = tab<Idx>(f.psum, c);
+    const Idx s = off + fm_rank(f, c, sp, false);
     *nsp = s;
     if (sp == ep)
       *nep = s + (bwt_access(f, ep) == c ? 0 : -1);
     else
       *nep = off + fm_rank(f, c, ep, true) - 1;
   }
-  static __device__ __forceinline__ int32_t lf(const FMView& f, int32_t p) {
+  static __device__ __forceinline__ Idx lf(const FMView& f, Idx p) {
     const int32_t c = bwt_access(f, p);
-    return __ldg(f.psum + c) + fm_rank(f, c, p, true) - 1;
+    return tab<Idx>(f.psum, c) + fm_rank(f, c, p, true) - 1;
   }
 };
 
-// Runs the statement with `Layout` naming the rank layout of the index.
-#define CFR_DISPATCH_LAYOUT(f, ...)                                  \
-  switch ((f)->layout) {                                             \
-    case LAYOUT_PLAIN: { using Layout = PlainLayout; __VA_ARGS__; break; }    \
-    case LAYOUT_RUNBLOCK: { using Layout = MegaLayout; __VA_ARGS__; break; }  \
-    default: { using Layout = GenericLayout; __VA_ARGS__; break; }            \
-  }
+// Runs the statement with `Layout` naming the rank layout of the index and
+// `Layout::Idx` its index type: plain x {int32, int64}, mega x int32 and
+// generic x {int32, int64}.  Returns cudaErrorInvalidValue from the
+// enclosing launch function for any other pair (TorchFM makes none).
+#define CFR_DISPATCH_LAYOUT(f, ...)                                                   \
+  do {                                                                                \
+    if ((f)->idx64) {                                                                 \
+      switch ((f)->layout) {                                                          \
+        case LAYOUT_PLAIN: { using Layout = PlainLayout<int64_t>; __VA_ARGS__; break; }   \
+        case LAYOUT_GENERIC: { using Layout = GenericLayout<int64_t>; __VA_ARGS__; break; } \
+        default: return static_cast<int>(cudaErrorInvalidValue);                      \
+      }                                                                               \
+    } else {                                                                          \
+      switch ((f)->layout) {                                                          \
+        case LAYOUT_PLAIN: { using Layout = PlainLayout<int32_t>; __VA_ARGS__; break; }   \
+        case LAYOUT_RUNBLOCK: { using Layout = MegaLayout; __VA_ARGS__; break; }      \
+        case LAYOUT_GENERIC: { using Layout = GenericLayout<int32_t>; __VA_ARGS__; break; } \
+        default: return static_cast<int>(cudaErrorInvalidValue);                      \
+      }                                                                               \
+    }                                                                                 \
+  } while (0)
 
 // Index of `row` in sel_rows, or -1 (binary search over the sorted table).
-__device__ __forceinline__ int32_t sel_find(const FMView& f, int32_t row) {
+template <class Idx>
+__device__ __forceinline__ int32_t sel_find(const FMView& f, Idx row) {
   int32_t lo = 0, hi = f.n_sel;
   while (lo < hi) {
     const int32_t mid = (lo + hi) >> 1;
-    if (__ldg(f.sel_rows + mid) < row) lo = mid + 1; else hi = mid;
+    if (tab<Idx>(f.sel_rows, mid) < row) lo = mid + 1; else hi = mid;
   }
-  return (lo < f.n_sel && __ldg(f.sel_rows + lo) == row) ? lo : -1;
+  return (lo < f.n_sel && tab<Idx>(f.sel_rows, lo) == row) ? lo : -1;
 }
 
 // SA row -> stored value (BackwardToSampledSA): one rowmap load, or the LF
 // walk to a first-ISA, sampled, selected or (where the index has no selected
 // rows) end-marker row, then that row's value.
 template <class Layout>
-__device__ __forceinline__ int32_t resolve_one(const FMView& f, int32_t row) {
-  if (f.rowmap) return __ldg(f.rowmap + min(max(row, 0), f.n - 1));
-  int32_t cur = row;
+__device__ __forceinline__ typename Layout::Idx resolve_one(const FMView& f,
+                                                            typename Layout::Idx row) {
+  using Idx = typename Layout::Idx;
+  if (f.rowmap) return __ldg(f.rowmap + tmin(tmax(row, Idx(0)), static_cast<Idx>(f.n - 1)));
+  const Idx fi = static_cast<Idx>(f.first_isa);
+  Idx cur = row;
   while (true) {
-    if (cur == f.first_isa) return f.adjusted_sa0;
-    if (cur % f.sample_rate == 0) return __ldg(f.sampled_sa + cur / f.sample_rate);
+    if (cur == fi) return static_cast<Idx>(f.adjusted_sa0);
+    if (cur % f.sample_rate == 0) return tab<Idx>(f.sampled_sa, cur / f.sample_rate);
     if (f.n_sel) {
       const int32_t k = sel_find(f, cur);
-      if (k >= 0) return __ldg(f.sel_vals + k);
+      if (k >= 0) return tab<Idx>(f.sel_vals, k);
     } else if (cur < f.n_end) {
-      return __ldg(f.end_marker_sa + cur);
+      return tab<Idx>(f.end_marker_sa, cur);
     }
     cur = Layout::lf(f, cur);
   }
@@ -151,14 +181,53 @@ __device__ __forceinline__ int32_t start_kmer(const FMView& f, const Codes& code
   return tv;
 }
 
-// ftab lookup of a packed pw-mer, the key clipped to the table: (start, len).
-__device__ __forceinline__ void ftab_entry(const FMView& f, uint64_t kmer, int32_t* start,
-                                           int32_t* len) {
+// ftab lookup of a packed pw-mer, the key clipped to the table: (start, len),
+// one 8-byte (int32) or 16-byte (int64) load of the interleaved pair.
+template <class Idx>
+__device__ __forceinline__ void ftab_entry(const FMView& f, uint64_t kmer, Idx* start, Idx* len) {
   const int64_t k = kmer < static_cast<uint64_t>(f.ftab_size) ? static_cast<int64_t>(kmer)
                                                               : f.ftab_size - 1;
-  const int2 e = __ldg(reinterpret_cast<const int2*>(f.ftab) + k);
-  *start = e.x;
-  *len = e.y;
+  if constexpr (sizeof(Idx) == 8) {
+    const longlong2 e = __ldg(reinterpret_cast<const longlong2*>(f.ftab) + k);
+    *start = e.x;
+    *len = e.y;
+  } else {
+    const int2 e = __ldg(reinterpret_cast<const int2*>(f.ftab) + k);
+    *start = e.x;
+    *len = e.y;
+  }
+}
+
+// One chain hit (sp, ep, l, off) in the index type: the hits tensors are
+// [B, H, 4] of Idx, 16 bytes a hit with int32 and 32 with int64.
+template <class Idx>
+struct Hit {
+  Idx sp, ep;
+  int32_t l, off;
+};
+
+template <class Idx>
+__device__ __forceinline__ Hit<Idx> load_hit(const Idx* hits, int64_t i) {
+  if constexpr (sizeof(Idx) == 8) {
+    const longlong2* p = reinterpret_cast<const longlong2*>(hits) + 2 * i;
+    const longlong2 a = p[0], b = p[1];
+    return Hit<Idx>{a.x, a.y, static_cast<int32_t>(b.x), static_cast<int32_t>(b.y)};
+  } else {
+    const int4 e = reinterpret_cast<const int4*>(hits)[i];
+    return Hit<Idx>{e.x, e.y, e.z, e.w};
+  }
+}
+
+template <class Idx>
+__device__ __forceinline__ void store_hit(Idx* hits, int64_t i, Idx sp, Idx ep, int32_t l,
+                                          int32_t off) {
+  if constexpr (sizeof(Idx) == 8) {
+    longlong2* p = reinterpret_cast<longlong2*>(hits) + 2 * i;
+    p[0] = make_longlong2(sp, ep);
+    p[1] = make_longlong2(l, off);
+  } else {
+    reinterpret_cast<int4*>(hits)[i] = make_int4(sp, ep, l, off);
+  }
 }
 
 // uint8 code lanes [B, L], 255 invalid.

@@ -6,7 +6,8 @@
 // Bound: each step is two dependent rank fetches at random rows
 // (latency-bound); the batch is small (a few hundred lanes at most).
 // Design: one thread per lane, ftab start then BackwardExtend until it fails
-// or covers ms.  A template over the rank layout.
+// or covers ms.  A template over the rank layout; (l, sp, ep) are in its
+// index type (int64: kernel K9).
 #include "fm_device.cuh"
 
 namespace {
@@ -14,14 +15,16 @@ namespace {
 template <class Layout>
 __global__ void prefix_search_kernel(FMView f, const uint8_t* __restrict__ codes,
                                      const int32_t* __restrict__ ms_in, int B, int L,
-                                     int32_t* __restrict__ out) {
+                                     typename Layout::Idx* __restrict__ out) {
+  using Idx = typename Layout::Idx;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const CodeLanes::Lane cd{codes + static_cast<int64_t>(b) * L, L};
   const int32_t pw = f.pw;
   const int32_t ms = ms_in[b];
   const int32_t msc = min(max(ms, 0), L);
-  int32_t l, sp = 1, ep = 0;
+  int32_t l;
+  Idx sp = 1, ep = 0;
   bool running = false;
   if (ms < pw) {
     l = 0;
@@ -31,7 +34,7 @@ __global__ void prefix_search_kernel(FMView f, const uint8_t* __restrict__ codes
     if (tv < pw) {
       l = tv;
     } else {
-      int32_t fsp, flen;
+      Idx fsp, flen;
       ftab_entry(f, kmer, &fsp, &flen);
       if (flen == 0) {
         l = pw - 1;
@@ -46,7 +49,7 @@ __global__ void prefix_search_kernel(FMView f, const uint8_t* __restrict__ codes
   while (running && l < ms) {
     const int32_t c = cd.cd[min(max(ms - 1 - l, 0), L - 1)];
     if (c == 255) break;
-    int32_t nsp, nep;
+    Idx nsp, nep;
     Layout::backward_extend(f, c, sp, ep, &nsp, &nep);
     if (nsp > nep) break;
     sp = nsp;
@@ -61,10 +64,10 @@ __global__ void prefix_search_kernel(FMView f, const uint8_t* __restrict__ codes
 }  // namespace
 
 extern "C" int prefix_search_launch(const FMView* f, const uint8_t* codes, const int32_t* ms,
-                                    int B, int L, int32_t* out, cudaStream_t stream) {
+                                    int B, int L, void* out, cudaStream_t stream) {
   const int threads = 128;
   CFR_DISPATCH_LAYOUT(f, prefix_search_kernel<Layout>
-                      <<<(B + threads - 1) / threads, threads, 0, stream>>>(*f, codes, ms, B,
-                                                                            L, out));
+                      <<<(B + threads - 1) / threads, threads, 0, stream>>>(
+                          *f, codes, ms, B, L, static_cast<typename Layout::Idx*>(out)));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,18 +6,25 @@
 // rank at pos even when (pos + 1) % 1920 == 0.  Value-identical to
 // TorchFM._plain_rank_sym / _plain_lf and to
 // centrifuger_tpu/fm/device.py DeviceFM._plain_rank_sym / _plain_lf.
+//
+// Templates over the index type Idx (int32_t, or int64_t for kernel K9,
+// DeviceFM._wide_occ :487-499): an int64 occ is the lo word plus bits 32..39
+// from byte c of occ_hi.  Row ids stay 32-bit (n / 1920 < 2^31): only the
+// occ sum and the psum offset are 64-bit.
 #pragma once
 #include "fm_view.cuh"
 
 #define WIDE_BLOCK 1920
 #define WIDE_WORDS 128
+#define WIDE_HI 4
 #define WIDE_OFF 6
 #define WIDE_PREV 5
 
-__device__ __forceinline__ const uint32_t* wide_row(const FMView& f, int32_t pos) {
+template <class Idx>
+__device__ __forceinline__ const uint32_t* wide_row(const FMView& f, Idx pos) {
   // pos >= -1; row (pos + 1) / 1920 holds the occ before slot (pos + 1)
-  return reinterpret_cast<const uint32_t*>(f.rows) +
-         static_cast<int64_t>((pos + 1) / WIDE_BLOCK) * WIDE_WORDS;
+  const int32_t r = static_cast<int32_t>((pos + 1) / WIDE_BLOCK);
+  return reinterpret_cast<const uint32_t*>(f.rows) + static_cast<int64_t>(r) * WIDE_WORDS;
 }
 
 // Occurrences of c in the first `upto` (< 1920) symbol slots of a row.
@@ -37,30 +44,43 @@ __device__ __forceinline__ int32_t wide_prefix_count(const uint32_t* row, uint32
   return cnt;
 }
 
-__device__ __forceinline__ int32_t wide_sym(const uint32_t* row, int32_t pos) {
-  const int32_t in_row = pos - ((pos + 1) / WIDE_BLOCK) * WIDE_BLOCK;
+template <class Idx>
+__device__ __forceinline__ int32_t wide_sym(const uint32_t* row, Idx pos) {
+  const int32_t in_row = static_cast<int32_t>(pos - ((pos + 1) / WIDE_BLOCK) * WIDE_BLOCK);
   const uint32_t w = in_row < 0 ? __ldg(row + WIDE_PREV)
                                 : __ldg(row + WIDE_OFF + (in_row >> 4));
   return static_cast<int32_t>((w >> ((pos & 15) * 2)) & 3u);
 }
 
+// The occ checkpoint of c from a wide row.
+template <class Idx>
+__device__ __forceinline__ Idx wide_occ(const uint32_t* row, int32_t c) {
+  const uint32_t lo = __ldg(row + c);
+  if constexpr (sizeof(Idx) == 8)
+    return static_cast<Idx>(lo) |
+           (static_cast<Idx>((__ldg(row + WIDE_HI) >> (8 * c)) & 0xFFu) << 32);
+  else
+    return static_cast<Idx>(lo);
+}
+
 // BWT rank_inclusive(c, pos) and, when asked, the symbol at pos; pos = -1
 // gives rank 0.
-__device__ __forceinline__ int32_t plain_rank_sym(const FMView& f, int32_t c, int32_t pos,
-                                                  int32_t* sym) {
+template <class Idx>
+__device__ __forceinline__ Idx plain_rank_sym(const FMView& f, int32_t c, Idx pos, int32_t* sym) {
   const uint32_t* row = wide_row(f, pos);
   if (sym) *sym = wide_sym(row, pos);
   if (pos < 0) return 0;
-  return static_cast<int32_t>(__ldg(row + c)) +
-         wide_prefix_count(row, c, (pos + 1) % WIDE_BLOCK);
+  return wide_occ<Idx>(row, c) +
+         wide_prefix_count(row, c, static_cast<int32_t>((pos + 1) % WIDE_BLOCK));
 }
 
 // LF-mapping of row p >= 0 from one wide row.
-__device__ __forceinline__ int32_t plain_lf(const FMView& f, int32_t p) {
+template <class Idx>
+__device__ __forceinline__ Idx plain_lf(const FMView& f, Idx p) {
   const uint32_t* row = wide_row(f, p);
   const int32_t sym = wide_sym(row, p);
-  const int32_t rank = static_cast<int32_t>(__ldg(row + sym)) +
-                       wide_prefix_count(row, sym, (p + 1) % WIDE_BLOCK);
-  const int32_t corr = (sym == f.last_chr && p < f.first_isa) ? 1 : 0;
-  return __ldg(f.psum + sym) + rank + corr - 1;
+  const Idx rank = wide_occ<Idx>(row, sym) +
+                   wide_prefix_count(row, sym, static_cast<int32_t>((p + 1) % WIDE_BLOCK));
+  const Idx corr = (sym == f.last_chr && p < static_cast<Idx>(f.first_isa)) ? 1 : 0;
+  return tab<Idx>(f.psum, sym) + rank + corr - 1;
 }

@@ -10,37 +10,46 @@
 //   mode 1  a = c, b = sp, c = ep       out0 = nsp, out1 = nep
 //   mode 2  a = p                       out0 = lf(p), out1 = 0
 //
+// Every array is in the layout's index type (int64: kernel K9), symbols too.
 // Bound: the layout's dependent fetches at random rows (latency and bytes).
 #include "fm_device.cuh"
 
 namespace {
 
 template <class Layout>
-__global__ void rank_probe_kernel(FMView f, int mode, const int32_t* __restrict__ a,
-                                  const int32_t* __restrict__ b,
-                                  const int32_t* __restrict__ c, int M,
-                                  int32_t* __restrict__ out0, int32_t* __restrict__ out1) {
+__global__ void rank_probe_kernel(FMView f, int mode, const typename Layout::Idx* __restrict__ a,
+                                  const typename Layout::Idx* __restrict__ b,
+                                  const typename Layout::Idx* __restrict__ c, int M,
+                                  typename Layout::Idx* __restrict__ out0,
+                                  typename Layout::Idx* __restrict__ out1) {
+  using Idx = typename Layout::Idx;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  int32_t r0, r1 = 0;
-  if (mode == 0)
-    r0 = Layout::rank_sym(f, a[i], b[i], &r1);
-  else if (mode == 1)
-    Layout::backward_extend(f, a[i], b[i], c[i], &r0, &r1);
-  else
+  Idx r0, r1 = 0;
+  if (mode == 0) {
+    int32_t sym;
+    r0 = Layout::rank_sym(f, static_cast<int32_t>(a[i]), b[i], &sym);
+    r1 = sym;
+  } else if (mode == 1) {
+    Layout::backward_extend(f, static_cast<int32_t>(a[i]), b[i], c[i], &r0, &r1);
+  } else {
     r0 = Layout::lf(f, a[i]);
+  }
   out0[i] = r0;
   out1[i] = r1;
 }
 
 }  // namespace
 
-extern "C" int rank_probe_launch(const FMView* f, int mode, const int32_t* a,
-                                 const int32_t* b, const int32_t* c, int M, int32_t* out0,
-                                 int32_t* out1, cudaStream_t stream) {
+extern "C" int rank_probe_launch(const FMView* f, int mode, const void* a, const void* b,
+                                 const void* c, int M, void* out0, void* out1,
+                                 cudaStream_t stream) {
   const int threads = 128;
-  CFR_DISPATCH_LAYOUT(f, rank_probe_kernel<Layout>
-                      <<<(M + threads - 1) / threads, threads, 0, stream>>>(*f, mode, a, b, c,
-                                                                            M, out0, out1));
+  CFR_DISPATCH_LAYOUT(f, using Idx = typename Layout::Idx;
+                      rank_probe_kernel<Layout>
+                      <<<(M + threads - 1) / threads, threads, 0, stream>>>(
+                          *f, mode, static_cast<const Idx*>(a), static_cast<const Idx*>(b),
+                          static_cast<const Idx*>(c), M, static_cast<Idx*>(out0),
+                          static_cast<Idx*>(out1)));
   return static_cast<int>(cudaGetLastError());
 }

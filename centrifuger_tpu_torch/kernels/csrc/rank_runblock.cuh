@@ -10,6 +10,9 @@
 //   bitvector  words [ngrp, 8] uint32 (one zero group appended), cum [ngrp]
 //   stream     words [nblk, 256 / per_word] uint32, occ [nblk, sigma]
 //
+// Templates over the index type Idx (int32_t, or int64_t for kernel K9): the
+// positions, cum and occ take it; word and symbol arithmetic stays 32-bit.
+//
 // Bound: a rank is up to five dependent fetches (indicator bit and count, the
 // block's stream, the other stream's cross term), each followed by a serial
 // SWAR + popc loop over up to 64 words of a 256-symbol block at 8 bits: bytes
@@ -21,17 +24,24 @@
 
 #define RANK_WORDS 8
 
-__device__ __forceinline__ int32_t bv_access(const uint32_t* words, int32_t idx) {
+template <class T>
+__device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
+template <class T>
+__device__ __forceinline__ T tmax(T a, T b) { return a < b ? b : a; }
+
+template <class Idx>
+__device__ __forceinline__ int32_t bv_access(const uint32_t* words, Idx idx) {
   return static_cast<int32_t>((__ldg(words + (idx >> 5)) >> (idx & 31)) & 1u);
 }
 
 // Ones in bits [0..idx].
-__device__ __forceinline__ int32_t bv_rank1_inclusive(const uint32_t* words,
-                                                      const int32_t* cum, int32_t idx) {
-  const int32_t pos1 = idx + 1, wi = pos1 >> 5, grp = wi / RANK_WORDS;
-  int32_t cnt = __ldg(cum + grp);
-  for (int32_t j = grp * RANK_WORDS; j < wi; ++j) cnt += __popc(__ldg(words + j));
-  const int32_t tail = pos1 & 31;
+template <class Idx>
+__device__ __forceinline__ Idx bv_rank1_inclusive(const uint32_t* words, const void* cum,
+                                                  Idx idx) {
+  const Idx pos1 = idx + 1, wi = pos1 >> 5, grp = wi / RANK_WORDS;
+  Idx cnt = tab<Idx>(cum, grp);
+  for (Idx j = grp * RANK_WORDS; j < wi; ++j) cnt += __popc(__ldg(words + j));
+  const int32_t tail = static_cast<int32_t>(pos1 & 31);
   if (tail) cnt += __popc(__ldg(words + wi) & ((1u << tail) - 1u));
   return cnt;
 }
@@ -57,29 +67,30 @@ __device__ __forceinline__ uint32_t swar_match(uint32_t w, uint32_t c) {
 }
 
 // Count of c in symbols [0..idx] of a packed stream; idx in range.
-template <int W>
-__device__ __forceinline__ int32_t packed_rank_inclusive(const uint32_t* words,
-                                                         const int32_t* occ, int32_t sigma,
-                                                         int32_t c, int32_t idx) {
+template <int W, class Idx>
+__device__ __forceinline__ Idx packed_rank_inclusive(const uint32_t* words, const void* occ,
+                                                     int32_t sigma, int32_t c, Idx idx) {
   constexpr int PER = 32 / W, WPB = 256 / PER;
-  const int32_t pos1 = idx + 1, blk = pos1 >> 8, rem = pos1 & 255;
+  const Idx pos1 = idx + 1, blk = pos1 >> 8;
+  const int32_t rem = static_cast<int32_t>(pos1 & 255);
   const uint32_t* w = words + static_cast<int64_t>(blk) * WPB;
-  int32_t cnt = __ldg(occ + static_cast<int64_t>(blk) * sigma + c);
+  Idx cnt = tab<Idx>(occ, static_cast<int64_t>(blk) * sigma + c);
   const int32_t full = rem / PER, tail = rem % PER;
   for (int32_t j = 0; j < full; ++j) cnt += __popc(swar_match<W>(__ldg(w + j), c));
   if (tail) cnt += __popc(swar_match<W>(__ldg(w + full), c) & ((1u << (tail * W)) - 1u));
   return cnt;
 }
 
-template <int W>
-__device__ __forceinline__ int32_t packed_access(const uint32_t* words, int32_t idx) {
+template <int W, class Idx>
+__device__ __forceinline__ int32_t packed_access(const uint32_t* words, Idx idx) {
   constexpr int PER = 32 / W;
   return static_cast<int32_t>((__ldg(words + idx / PER) >> ((idx % PER) * W)) &
                               ((1u << W) - 1u));
 }
 
-__device__ __forceinline__ int32_t stream_rank(const FMView& f, const int32_t* words,
-                                               const int32_t* occ, int32_t c, int32_t idx) {
+template <class Idx>
+__device__ __forceinline__ Idx stream_rank(const FMView& f, const int32_t* words,
+                                           const void* occ, int32_t c, Idx idx) {
   const uint32_t* w = reinterpret_cast<const uint32_t*>(words);
   switch (f.width) {
     case 2: return packed_rank_inclusive<2>(w, occ, f.sigma, c, idx);
@@ -88,8 +99,9 @@ __device__ __forceinline__ int32_t stream_rank(const FMView& f, const int32_t* w
   }
 }
 
+template <class Idx>
 __device__ __forceinline__ int32_t stream_access(const FMView& f, const int32_t* words,
-                                                 int32_t idx) {
+                                                 Idx idx) {
   const uint32_t* w = reinterpret_cast<const uint32_t*>(words);
   switch (f.width) {
     case 2: return packed_access<2>(w, idx);
@@ -100,37 +112,41 @@ __device__ __forceinline__ int32_t stream_access(const FMView& f, const int32_t*
 
 // lit.rank_inclusive with the empty-stream and pos < 0 guards; pos is clipped
 // to the stream.
-__device__ __forceinline__ int32_t lit_rank(const FMView& f, int32_t c, int32_t pos) {
+template <class Idx>
+__device__ __forceinline__ Idx lit_rank(const FMView& f, int32_t c, Idx pos) {
   if (f.lit_n == 0 || pos < 0) return 0;
-  return stream_rank(f, f.lit_words, f.lit_occ, c, min(pos, f.lit_n - 1));
+  return stream_rank(f, f.lit_words, f.lit_occ, c, tmin(pos, static_cast<Idx>(f.lit_n - 1)));
 }
 
-__device__ __forceinline__ int32_t run_rank(const FMView& f, int32_t c, int32_t pos) {
+template <class Idx>
+__device__ __forceinline__ Idx run_rank(const FMView& f, int32_t c, Idx pos) {
   if (f.run_n == 0 || pos < 0) return 0;
-  return stream_rank(f, f.run_words, f.run_occ, c, min(pos, f.run_n - 1));
+  return stream_rank(f, f.run_words, f.run_occ, c, tmin(pos, static_cast<Idx>(f.run_n - 1)));
 }
 
 // Sequence_RunBlock::Rank: count of c in BWT[0..idx], idx in [0, n - 1].
-__device__ __forceinline__ int32_t bwt_rank(const FMView& f, int32_t c, int32_t idx) {
+template <class Idx>
+__device__ __forceinline__ Idx bwt_rank(const FMView& f, int32_t c, Idx idx) {
   const uint32_t* ind = reinterpret_cast<const uint32_t*>(f.ind_words);
-  const int32_t b = f.b, bi = idx / b, inb = idx % b;
+  const Idx b = f.b, bi = idx / b, inb = idx % b;
   const int32_t typ = bv_access(ind, bi);
-  int32_t ranki = 1;
+  Idx ranki = 1;
   if (f.b_lt_n) {
-    const int32_t r1 = bv_rank1_inclusive(ind, f.ind_cum, bi);
+    const Idx r1 = bv_rank1_inclusive(ind, f.ind_cum, bi);
     ranki = typ == 1 ? r1 : bi + 1 - r1;
   }
-  const int32_t other = bi + 1 - ranki;
-  int32_t ret, cross;
+  const Idx other = bi + 1 - ranki;
+  Idx ret, cross;
   if (typ == 0) {
     ret = lit_rank(f, c, (ranki - 1) * b + inb);
     cross = run_rank(f, c, other - 1) * b;
   } else {
     ret = 0;
     if (f.run_n) {
-      const int32_t rb = run_rank(f, c, ranki - 1);
-      const bool in_run =
-          stream_access(f, f.run_words, min(max(ranki - 1, 0), f.run_n - 1)) == c;
+      const Idx rb = run_rank(f, c, ranki - 1);
+      const bool in_run = stream_access(f, f.run_words,
+                                        tmin(tmax(ranki - 1, Idx(0)),
+                                             static_cast<Idx>(f.run_n - 1))) == c;
       ret = in_run ? (rb - 1) * b + inb + 1 : rb * b;
     }
     cross = lit_rank(f, c, other * b - 1);
@@ -139,23 +155,27 @@ __device__ __forceinline__ int32_t bwt_rank(const FMView& f, int32_t c, int32_t 
 }
 
 // Sequence_RunBlock::Access: the BWT symbol at idx in [0, n - 1].
-__device__ __forceinline__ int32_t bwt_access(const FMView& f, int32_t idx) {
+template <class Idx>
+__device__ __forceinline__ int32_t bwt_access(const FMView& f, Idx idx) {
   const uint32_t* ind = reinterpret_cast<const uint32_t*>(f.ind_words);
-  const int32_t b = f.b, bi = idx / b;
-  const int32_t r1 = bv_rank1_inclusive(ind, f.ind_cum, bi);
+  const Idx b = f.b, bi = idx / b;
+  const Idx r1 = bv_rank1_inclusive(ind, f.ind_cum, bi);
   if (bv_access(ind, bi) == 0) {
     if (f.lit_n == 0) return 0;
-    return stream_access(f, f.lit_words, min(max(idx - b * r1, 0), f.lit_n - 1));
+    return stream_access(f, f.lit_words,
+                         tmin(tmax(idx - b * r1, Idx(0)), static_cast<Idx>(f.lit_n - 1)));
   }
   if (f.run_n == 0) return 0;
-  const int32_t r0 = bi + 1 - r1;
-  return stream_access(f, f.run_words, min(max((idx - b * r0) / b, 0), f.run_n - 1));
+  const Idx r0 = bi + 1 - r1;
+  return stream_access(f, f.run_words,
+                       tmin(tmax((idx - b * r0) / b, Idx(0)), static_cast<Idx>(f.run_n - 1)));
 }
 
 // FMIndex::Rank with the displaced-last-char correction.
-__device__ __forceinline__ int32_t fm_rank(const FMView& f, int32_t c, int32_t p,
-                                           bool inclusive) {
+template <class Idx>
+__device__ __forceinline__ Idx fm_rank(const FMView& f, int32_t c, Idx p, bool inclusive) {
   const bool last = c == f.last_chr;
-  if (inclusive) return bwt_rank(f, c, p) + ((last && p < f.first_isa) ? 1 : 0);
-  return (p > 0 ? bwt_rank(f, c, p - 1) : 0) + ((last && p <= f.first_isa) ? 1 : 0);
+  const Idx fi = static_cast<Idx>(f.first_isa);
+  if (inclusive) return bwt_rank(f, c, p) + ((last && p < fi) ? 1 : 0);
+  return (p > 0 ? bwt_rank(f, c, p - 1) : 0) + ((last && p <= fi) ? 1 : 0);
 }

@@ -8,6 +8,9 @@ checkout and holds every kernel to its plain PyTorch twin:
   B     the same index and reads with --serve-layout runblock (the mega-table)
   A     protein (translated) classify: a --protein index, nucleotide reads
   C     a nucleotide index built with --ftabchars 12 (wide ftab)
+  D     the main index loaded as an int64 index (force_idtype="int64", K9)
+  E     the non-fused engine (--engine jax), long reads and -k 0
+  K12   the dependent-gather microbenchmark (tools/micro_gather.py)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -30,6 +33,22 @@ Phases (any failure exits non-zero and prints no result):
      all even ones) and 65,536 paired 100 bp reads back-translated from it
   C. the first five genomes of the main DB (16 Mnt) indexed with
      --ftabchars 12 and 8,192 read pairs
+  D. the main index and reads again through the CLI, its classifier made
+     with force_idtype="int64" (TorchFM.from_index(fm, force_idtype="int64"),
+     what a database past 2^31 - 8 symbols loads as): plain with the rowmap,
+     plain with --no-rowmap, and --serve-layout runblock (which an int64 index
+     serves as generic); each TSV equals the main path's and every launch is
+     an ":i64" instantiation.  Then an offset-rows rank of 2^20 random rows
+     (every occ + O, O = 5 * 2^32 + 12,345): the 40-bit occ's hi byte, held
+     to its twin and to the original rank plus O.
+  E. the main index and reads through --engine jax (the non-fused engine):
+     the main path's TSV; 1,024 single-end reads of 9,000-20,000 bp drawn
+     from the main DB with 1% substitutions through the default engine,
+     which hands them to the non-fused engine; and -k 0 on the first 8,192
+     pairs.  The long reads and -k 0 are held to a --device cpu run of their
+     first 128 reads / pairs.
+  K12. the dependent-gather microbenchmark through its driver, then its
+     kernel against its twin.
      Each path's run is its reads through the CLI, then the public rank,
      BackwardExtend and LF of the same index and layout at 4,096 rows, held
      to the host index.
@@ -42,7 +61,12 @@ Phases (any failure exits non-zero and prints no result):
      finalize_units on one batch of 8,192 pairs, prefix_search and
      resolve_rows on the very tensors the host finish stage hands them for a
      batch, rank_probe (one rank, one extend, one LF of each layout) at the
-     batch's lane count, and one rank of 2^20 random rows per layout.
+     batch's lane count, and one rank of 2^20 random rows per layout; the
+     int64 instantiations of path D the same way; for each run of path E
+     (--engine jax, the long reads, -k 0) chain_search_lanes, prefix_search
+     and resolve_rows on the very tensors the non-fused engine hands them for
+     the run's first batch (all 1,024 long reads are one batch: 2,048 lanes
+     of 20,032 codes); and dep_gather at the probe's shape.
 
 The second-to-last stdout line is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Logs go to chiprun_out/.
@@ -52,6 +76,8 @@ The second-to-last stdout line is the per-kernel JSON record, the last line
 
 import argparse
 import contextlib
+import functools
+import gc
 import io
 import json
 import multiprocessing
@@ -78,8 +104,13 @@ READ_LEN = 100
 N_GENOMES = 20
 FTAB12_GENOMES = 5                    # path C: the main DB's first genomes
 FTAB12_PAIRS = 8192
-CPU_PAIRS = {"main": 8192, "protein": 8192, "ftab12": 2048}   # TSV head run on the CPU
+CPU_PAIRS = {"main": 8192, "protein": 8192, "ftab12": 2048,   # TSV head run on the CPU
+             "long": 128, "k0": 128}
 MANY_ROWS = 1 << 20                   # rank_probe: rows of the per-layout timing
+N_LONG = 1024                         # path E: long single-end reads, 9-20 kbp
+LONG_LEN = (9000, 20000)
+K0_PAIRS = 8192                       # path E: -k 0 on the first pairs
+OFFSET = 5 * 2 ** 32 + 12345          # path D: the offset-rows constant O
 AA_LETTERS = "ARNDCEQGHILKMFPSTWYV"   # codes 1..20 of the protein alphabet
 FX = os.path.join(REPO, "tests", "fixtures")
 CSRC = "centrifuger_tpu_torch/kernels/csrc/%s.cu"
@@ -265,9 +296,28 @@ def write_protein_reads(proteomes, n_pairs, seed, d):
             write_pair(f1, f2, i, nt[off:off + fl], rng)
 
 
-def head_pairs(d, n_pairs, out):
+def write_long_reads(genomes, n, seed, d):
+    """n single-end reads of LONG_LEN bp from the genomes, half reverse
+    complemented, 1% substitutions (nanopore / PacBio read lengths)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    os.makedirs(d)
+    with open(os.path.join(d, "reads_1.fq"), "wb") as f:
+        for i in range(n):
+            g = genomes[rng.integers(0, len(genomes))]
+            ln = int(rng.integers(LONG_LEN[0], LONG_LEN[1] + 1))
+            p = int(rng.integers(0, len(g) - ln))
+            r = g[p:p + ln].copy()
+            if rng.random() < 0.5:
+                r = 3 - r[::-1]
+            err = rng.random(ln) < 0.01
+            r[err] = rng.integers(0, 4, int(err.sum()), dtype=np.uint8)
+            f.write(b"@l%05d\n%s\n+\n%s\n" % (i, acgt[r].tobytes(), b"I" * ln))
+
+
+def head_pairs(d, n_pairs, out, paired=True):
     os.makedirs(out, exist_ok=True)
-    for name in ("reads_1.fq", "reads_2.fq"):
+    for name in ("reads_1.fq", "reads_2.fq")[:2 if paired else 1]:
         with open(os.path.join(d, name), "rb") as f, \
                 open(os.path.join(out, name), "wb") as g:
             for _ in range(4 * n_pairs):
@@ -306,6 +356,8 @@ def make_database(kind, size, seed):
             genomes = genomes[:FTAB12_GENOMES]
         write_db(genomes, d)
         write_reads(genomes, FTAB12_PAIRS if kind == "ftab12" else N_PAIRS, seed + 1, d)
+        if kind == "main":
+            write_long_reads(genomes, N_LONG, seed + 2, os.path.join(d, "long"))
         extra = ["--ftabchars", "12"] if kind == "ftab12" else []
     t1 = time.time()
     with open(os.path.join(OUT, "build_%s.txt" % kind), "w") as log:
@@ -314,16 +366,23 @@ def make_database(kind, size, seed):
         json.dump({"data_s": t1 - t0, "build_s": time.time() - t1}, f)
 
 
-def classify(prefix, reads_dir, extra, log, paired=True):
+def classify(prefix, reads_dir, extra, log, paired=True, force_idtype=None):
     """The port's CLI entry in-process; returns (TSV text, (fast units,
-    fallback units))."""
+    fallback units)).  force_idtype makes the CLI's classifier with that index
+    type (make_classifier(..., force_idtype=...))."""
     from centrifuger_tpu_torch.cli import classify_cli
     rargs = (["-1", os.path.join(reads_dir, "reads_1.fq"),
               "-2", os.path.join(reads_dir, "reads_2.fq")] if paired
              else ["-u", os.path.join(reads_dir, "reads_1.fq")])
     buf, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-        rc = classify_cli.main(["-x", prefix] + rargs + extra)
+    make = classify_cli.make_classifier
+    if force_idtype:
+        classify_cli.make_classifier = functools.partial(make, force_idtype=force_idtype)
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = classify_cli.main(["-x", prefix] + rargs + extra)
+    finally:
+        classify_cli.make_classifier = make
     log.write(err.getvalue())
     if rc != 0:
         fail("classify_cli returned %r" % rc)
@@ -331,26 +390,33 @@ def classify(prefix, reads_dir, extra, log, paired=True):
     return buf.getvalue(), (tuple(map(int, m.groups())) if m else None)
 
 
-def read_batches(reads_dir):
-    """The paired reads as the CLI batches them: engine queries per batch of
-    BATCH_PAIRS pairs."""
+def read_batches(reads_dir, paired=True):
+    """The reads as the CLI batches them: engine queries per batch of
+    BATCH_PAIRS pairs (or single reads)."""
     from centrifuger_tpu_torch.cli.classify_cli import _batch_queries
     from centrifuger_tpu_torch.io.readers import ReadFiles
     r1, r2 = ReadFiles(), ReadFiles()
     r1.add_read_file(os.path.join(reads_dir, "reads_1.fq"))
-    r2.add_read_file(os.path.join(reads_dir, "reads_2.fq"))
-    pairs = list(zip(r1, r2))
+    if paired:
+        r2.add_read_file(os.path.join(reads_dir, "reads_2.fq"))
+    pairs = list(zip(r1, r2)) if paired else [(r, None) for r in r1]
     return [_batch_queries(pairs[i:i + BATCH_PAIRS])
             for i in range(0, len(pairs), BATCH_PAIRS)]
 
 
-def make_engine(prefix, serve_layout="plain"):
+def make_engine(prefix, serve_layout="plain", force_idtype=None, unfused=False,
+                param=None, dev=None):
+    """The engine the CLI makes (or, unfused, --engine jax's), on the card;
+    dev shares an engine's device index."""
     from centrifuger_tpu_torch.build import load_index, is_protein_index
     from centrifuger_tpu_torch.classify.engine import ClassifierTorch
+    from centrifuger_tpu_torch.classify.engine_unfused import ClassifierTorchUnfused
     from centrifuger_tpu_torch.classify.params import ClassifierParam
     fm_host, tax, _, _ = load_index(prefix)
-    return ClassifierTorch(fm_host, tax, ClassifierParam(), device="cuda",
-                           protein=is_protein_index(prefix), serve_layout=serve_layout)
+    cls = ClassifierTorchUnfused if unfused else ClassifierTorch
+    return cls(fm_host, tax, param or ClassifierParam(), device="cuda", dev=dev,
+               protein=is_protein_index(prefix), serve_layout=serve_layout,
+               force_idtype=force_idtype)
 
 
 def cuda_ms(fn, reps):
@@ -400,7 +466,7 @@ def phase_goldens(log):
                " (plain; runblock with and without --no-rowmap)"))
 
 
-def probe_index(prefix, serve_layout, n_probe=4096):
+def probe_index(prefix, serve_layout, force_idtype=None, n_probe=4096):
     """The index's public rank, BackwardExtend and LF on the card (the
     counterparts of DeviceFM.rank / backward_extend / lf, which rank_probe.cu
     computes) at the table edges and seeded random rows, held to the host
@@ -409,7 +475,7 @@ def probe_index(prefix, serve_layout, n_probe=4096):
     from centrifuger_tpu_torch.build import load_index
     from centrifuger_tpu_torch.fm import device as fd
     fm = load_index(prefix)[0]
-    dev_fm = fd.TorchFM.from_index(fm, "cuda", serve_layout)
+    dev_fm = fd.TorchFM.from_index(fm, "cuda", serve_layout, force_idtype)
     rng = np.random.default_rng(fm.n)
     fi = fm.first_isa
     rows = np.concatenate([
@@ -421,7 +487,7 @@ def probe_index(prefix, serve_layout, n_probe=4096):
     ep = np.minimum(rows + rng.integers(0, 4, len(rows)) * 7, fm.n - 1)
 
     def dev(a):
-        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+        return torch.from_numpy(np.asarray(a, np.int64)).to("cuda", dev_fm.idtype)
     rank, sym = fd.rank_sym(dev_fm, dev(c), dev(rows))
     nsp, nep = fd.backward_extend(dev_fm, dev(c), dev(rows), dev(ep))
     got = torch.stack([rank, sym, nsp, nep, fd.lf(dev_fm, dev(rows))]).cpu().numpy()
@@ -434,19 +500,23 @@ def probe_index(prefix, serve_layout, n_probe=4096):
     return dev_fm.layout, len(rows)
 
 
-def run_path(name, label, prefix, reads_dir, extra, n_pairs, expect, log):
+def run_path(name, label, prefix, reads_dir, extra, n_pairs, expect, log, paired=True,
+             force_idtype=None):
     """One run of a path with the launch counts set to 0 just before and read
     just after: the reads through the CLI and, where `expect` names
     rank_probe, the index's public rank / extend / LF on the same index and
     layout (probe_index).  Fails if a kernel named in `expect` never
-    launched."""
+    launched, or, with force_idtype int64, if any launch was not an int64
+    instantiation."""
     import torch
     from centrifuger_tpu_torch import kernels
+    gc.collect()    # the earlier runs' engines: their buffers are not this path's peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.time()
-    tsv, units = classify(prefix, reads_dir, extra + ["--batch-size", str(BATCH_PAIRS)], log)
+    tsv, units = classify(prefix, reads_dir, extra + ["--batch-size", str(BATCH_PAIRS)], log,
+                          paired, force_idtype)
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
     if any(k.startswith("rank_probe") for k in expect):
@@ -455,15 +525,19 @@ def run_path(name, label, prefix, reads_dir, extra, n_pairs, expect, log):
         t1 = time.time()
         say("%s: %s: rank, BackwardExtend and LF of %d rows on the card (%s layout) equal "
             "the host index's (%.1f s, index load included)"
-            % ((label, name) + probe_index(prefix, layout)[::-1] + (time.time() - t1,)))
+            % ((label, name) + probe_index(prefix, layout, force_idtype)[::-1]
+               + (time.time() - t1,)))
     launches = dict(kernels.LAUNCHES)
-    say("%s: %s: %d pairs in %.2f s through the CLI (index load included): %.0f read "
-        "pairs/s; units fast %d fallback %d; launches %s; peak device memory %.1f MB"
-        % (label, name, n_pairs, wall, n_pairs / wall, units[0], units[1], launches,
-           peak / 1e6))
+    say("%s: %s: %d %s in %.2f s through the CLI (index load included): %.0f %s/s; "
+        "units fast %d fallback %d; launches %s; peak device memory %.1f MB"
+        % (label, name, n_pairs, "pairs" if paired else "reads", wall, n_pairs / wall,
+           "read pairs" if paired else "reads", units[0], units[1], launches, peak / 1e6))
     missing = [k for k in expect if not launches.get(k)]
     if missing:
         fail("kernels never launched on the %s path: %s" % (name, missing))
+    if force_idtype == "int64" and any(":i64" not in k for k in launches):
+        fail("%s: a launch of the int64 path was not an :i64 instantiation: %s"
+             % (name, launches))
     return tsv, launches
 
 
@@ -475,8 +549,12 @@ def engine_rates(label, eng, bq, n_pairs, profile_name):
     from torch.profiler import profile, ProfilerActivity
 
     def one_pass():
-        for packed, fb, queries in eng.query_pipelined_packed(iter(bq)):
-            eng.format_tsv_batch(packed, fb, queries, ["r"] * len(queries))
+        if hasattr(eng, "query_pipelined_packed"):
+            for packed, fb, queries in eng.query_pipelined_packed(iter(bq)):
+                eng.format_tsv_batch(packed, fb, queries, ["r"] * len(queries))
+        else:   # the non-fused engine: result objects, as the CLI's query_batch
+            for queries in bq:
+                eng.query_batch(queries)
         torch.cuda.synchronize()
     fm = eng.dev
     rank_tables = [t for t in (fm.rows, fm.mega) if t is not None] + \
@@ -504,25 +582,26 @@ def engine_rates(label, eng, bq, n_pairs, profile_name):
         % (label, rate, wall_ms, busy_ms, 1 - busy_ms / wall_ms, profile_name))
 
 
-def check_cpu_head(label, kind, prefix, reads_dir, tsv, extra, log):
+def check_cpu_head(label, kind, prefix, reads_dir, tsv, extra, log, paired=True):
     """The head of the path's reads on the CPU (plain versions) must give the
     head of the card's TSV."""
     n = CPU_PAIRS[kind]
     head = os.path.join(WORK, "head_" + kind)
-    head_pairs(reads_dir, n, head)
+    head_pairs(reads_dir, n, head, paired)
     t0 = time.time()
-    cpu_tsv, _ = classify(prefix, head, extra + ["--device", "cpu"], log)
+    cpu_tsv, _ = classify(prefix, head, extra + ["--device", "cpu"], log, paired)
     if not tsv.startswith(cpu_tsv) or cpu_tsv.count("\n") < n:
-        fail("%s: the first %d pairs differ between cuda and cpu" % (label, n))
-    say("%s: first %d pairs identical on cpu and cuda (cpu run %.1f s)"
-        % (label, n, time.time() - t0))
+        fail("%s: the first %d %s differ between cuda and cpu"
+             % (label, n, "pairs" if paired else "reads"))
+    say("%s: first %d %s identical on cpu and cuda (cpu run %.1f s)"
+        % (label, n, "pairs" if paired else "reads", time.time() - t0))
 
 
 class Records:
     """The per-kernel records of phase 6."""
 
-    def __init__(self, fm, launches):
-        self.fm, self.launches, self.recs = fm, launches, []
+    def __init__(self, fm, launches, path):
+        self.fm, self.launches, self.path, self.recs = fm, launches, path, []
 
     def bound(self, table_bytes, io_bytes):
         """(least ms, what bounds it): each input byte read and each output
@@ -532,28 +611,34 @@ class Records:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def traffic(self, fn):
-        """(fn(), the index-table bytes the plain version counted)."""
+        """(fn(), the index-table bytes the plain version counted, its ms by
+        CUDA events)."""
         import torch
         self.fm.traffic = 0
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
         out = fn()
-        torch.cuda.synchronize()
+        e.record()
+        e.synchronize()
         t, self.fm.traffic = self.fm.traffic, None
-        return out, t
+        return out, t, s.elapsed_time(e)
 
     def add(self, name, replaces, kernel, plain, io_bytes, library_ms=None,
-            same=None):
+            same=None, reps=20, plain_reps=3):
         """Hold kernel() to plain() (tuples of tensors), time both, and record
-        them under the launch count `name`."""
+        them under the launch count `name`.  plain_reps=0 times the plain
+        version's one comparison call (for a twin that takes minutes)."""
         got = kernel()
-        want, table_bytes = self.traffic(plain)
+        want, table_bytes, plain_once = self.traffic(plain)
         got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
         err = max(max_abs_err(g, w) for g, w in zip(got, want))
         if same is not None:
             err = max(err, max(max_abs_err(g, w) for g, w in zip(got, same)))
-        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+        ms = cuda_ms(kernel, reps)
+        plain_ms = cuda_ms(plain, plain_reps) if plain_reps else plain_once
         bound_ms, bound_by = self.bound(table_bytes, io_bytes + nbytes(*got))
         self.recs.append(dict(
-            name=name, route="cuda", source=CSRC % name.split(":")[0],
+            name=name, path=self.path, route="cuda", source=CSRC % name.split(":")[0],
             replaces=replaces, launches=self.launches.get(name, 0), max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms))
@@ -568,17 +653,40 @@ class Records:
         return got
 
 
+@contextlib.contextmanager
+def spying(module, names):
+    """Yields {wrapper: its arguments after the index} for the first call of
+    each wrapper in `names` that `module` makes meanwhile."""
+    handed, orig = {}, {n: getattr(module, n) for n in names}
+
+    def spy(name, fn):
+        def call(fm_, *args):
+            handed.setdefault(name, args)
+            return fn(fm_, *args)
+        return call
+    for n in names:
+        setattr(module, n, spy(n, orig[n]))
+    try:
+        yield handed
+    finally:
+        for n in names:
+            setattr(module, n, orig[n])
+
+
 def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
     """Every kernel a path launched against its plain twin at the path's
     shapes.  `replaces` maps the kernels to the JAX programs they replace."""
     import torch
-    from centrifuger_tpu_torch.classify import engine as engine_mod
+    from centrifuger_tpu_torch import kernels
+    from centrifuger_tpu_torch.classify import engine_unfused as engine_mod
     from centrifuger_tpu_torch.classify import device_engine as de
     from centrifuger_tpu_torch.fm import device as fd
 
     fm = eng.dev
-    rec = Records(fm, launches)
-    lay = fm.layout
+    rec = Records(fm, launches, label.replace("phase 6 ", ""))
+
+    def inst(kernel, *variant):
+        return kernels.instantiation(kernel, fm, variant)
     queries = batches[0]
     mhl = eng.param.min_hit_len
     me = eng.param.max_result * eng.param.max_result_per_hit_factor
@@ -593,14 +701,14 @@ def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
     H = L // (mhl + 1) + 1
     variant = fd.chain_variant(fm, lanes=eng.protein)
     hits, nhits = rec.add(
-        ":".join(("chain_search", lay) + variant), replaces["chain_search"],
+        inst("chain_search", *variant), replaces["chain_search"],
         lambda: chain(fm, *reads, mhl, H), lambda: chain_plain(fm, *reads, mhl, H),
         nbytes(*reads), same=ref_hits)
     say("%s: %d lanes x %d codes, %d hits, H=%d"
         % (label, len(nhits), L, int(nhits.sum()), H))
     if "finalize_units" in replaces:
         packed, = rec.add(
-            ":".join(("finalize_units", lay) + ("protein",) * eng.protein),
+            inst("finalize_units", *("protein",) * eng.protein),
             replaces["finalize_units"],
             lambda: de.finalize_units(fm, hits, nhits, nr, mhl, me, eng.K_OUT, eng.protein),
             lambda: de.finalize_units_plain(fm, hits, nhits, nr, mhl, me, eng.K_OUT,
@@ -612,24 +720,11 @@ def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
     # K5 and K2 on the tensors the host finish stage hands their wrappers
     # when the batches run as on the path: the first call of each
     wanted = [k for k in ("prefix_search", "resolve_rows") if k in replaces]
-    handed = {}
-
-    def spy(name, fn):
-        def call(fm_, *args):
-            handed.setdefault(name, args)
-            return fn(fm_, *args)
-        return call
-
-    engine_mod.prefix_search = spy("prefix_search", fd.prefix_search)
-    engine_mod.resolve_rows = spy("resolve_rows", fd.resolve_rows)
-    try:
+    with spying(engine_mod, wanted) as handed:
         for qs in batches if wanted else []:
             eng.finish_packed(eng._dispatch_fused(qs))
             if all(k in handed for k in wanted):
                 break
-    finally:
-        engine_mod.prefix_search = fd.prefix_search
-        engine_mod.resolve_rows = fd.resolve_rows
     if any(k not in handed for k in wanted):
         fail("%s: the batches never called %s" % (label, wanted))
     if "prefix_search" in wanted:
@@ -638,7 +733,7 @@ def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
             "%d lanes with ms < %d)"
             % (label, codes.shape[0], codes.shape[1], int(ms.min()), int(ms.max()),
                int((ms < codes.shape[1]).sum()), codes.shape[1]))
-        rec.add("prefix_search:" + lay, replaces["prefix_search"],
+        rec.add(inst("prefix_search"), replaces["prefix_search"],
                 lambda: fd.prefix_search(fm, codes, ms),
                 lambda: fd.prefix_search_plain(fm, codes, ms), nbytes(codes, ms))
     if "resolve_rows" in wanted:
@@ -646,13 +741,13 @@ def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
         say("%s: the finish stage hands resolve_rows %d rows" % (label, len(rows)))
         rowmap = fm.rowmap
         lib = cuda_ms(lambda: torch.index_select(rowmap, 0, rows), 20)
-        rec.add("resolve_rows:" + lay, replaces["resolve_rows"],
+        rec.add(inst("resolve_rows"), replaces["resolve_rows"],
                 lambda: fd.resolve_rows(fm, rows, valid),
                 lambda: fd.resolve_rows_plain(fm, rows, valid), nbytes(rows, valid), lib)
         fm.rowmap = None
         try:
             got = fd.resolve_rows(fm, rows, valid)
-            want, tr = rec.traffic(lambda: fd.resolve_rows_plain(fm, rows, valid))
+            want, tr, _ = rec.traffic(lambda: fd.resolve_rows_plain(fm, rows, valid))
             if max_abs_err(got, want):
                 fail("%s: resolve_rows (LF walk) disagrees with its plain twin" % label)
             say("%s: resolve_rows LF-walk branch: err 0  kernel %.4f ms  plain %.4f ms  "
@@ -670,37 +765,142 @@ def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
 
 
 def probe_tensors(fm, M, seed=5):
-    """(c, sp, ep) int32 [M] on the card: seeded random symbols and rows, half
-    of the ranges one row wide."""
+    """(c, sp, ep) [M] in the index type on the card: seeded random symbols
+    and rows, half of the ranges one row wide."""
     import torch
     rng = np.random.default_rng(seed)
     sp = rng.integers(0, fm.n, M)
     ep = np.minimum(sp + rng.integers(0, 64, M), fm.n - 1)
     ep[::2] = sp[::2]
     c = rng.integers(0, fm.sigma, M)
-    return tuple(torch.from_numpy(a.astype(np.int32)).cuda() for a in (c, sp, ep))
+    return tuple(torch.from_numpy(a).to("cuda", fm.idtype) for a in (c, sp, ep))
 
 
 def rank_probe_record(rec, fm, probe, replaces):
     """rank_probe: one rank + symbol of M random rows is the record; one
     BackwardExtend and one LF are held to their twins and timed beside it."""
+    from centrifuger_tpu_torch import kernels
     from centrifuger_tpu_torch.fm import device as fd
     c, sp, ep = probe
+    name = kernels.instantiation("rank_probe", fm)
 
     def ints(ts):
-        return tuple(t.int() for t in ts)
+        return tuple(t.to(fm.idtype) for t in ts)
     for what, kernel, plain in (
             ("extend", lambda: fd.backward_extend(fm, c, sp, ep),
              lambda: fm.backward_extend(c.long(), sp.long(), ep.long())),
             ("lf", lambda: (fd.lf(fm, sp),), lambda: (fm.lf(sp.long()),))):
         if any(max_abs_err(g, w) for g, w in zip(kernel(), ints(plain()))):
-            fail("rank_probe:%s %s disagrees with its plain twin" % (fm.layout, what))
-        say("phase 6: rank_probe:%s %s of %d rows: err 0  kernel %.4f ms  plain %.4f ms"
-            % (fm.layout, what, len(c), cuda_ms(kernel, 20), cuda_ms(plain, 3)))
-    rec.add("rank_probe:" + fm.layout, replaces, lambda: fd.rank_sym(fm, c, sp),
+            fail("%s %s disagrees with its plain twin" % (name, what))
+        say("phase 6: %s %s of %d rows: err 0  kernel %.4f ms  plain %.4f ms"
+            % (name, what, len(c), cuda_ms(kernel, 20), cuda_ms(plain, 3)))
+    rec.add(name, replaces, lambda: fd.rank_sym(fm, c, sp),
             lambda: ints(fm.rank_sym(c.long(), sp.long())), nbytes(c, sp))
-    say("phase 6: rank_probe:%s one rank of %d random rows: %.4f ms"
-        % (fm.layout, MANY_ROWS, many_ranks_ms(fm)))
+    say("phase 6: %s one rank of %d random rows: %.4f ms" % (name, MANY_ROWS, many_ranks_ms(fm)))
+
+
+def offset_rows_check(label, fm):
+    """The 40-bit occ on the card (path D): one rank of MANY_ROWS random rows
+    over the offset rows (every occ + OFFSET, split into the lo word and the
+    WIDE_HI byte), held to its twin and to the original rank plus OFFSET."""
+    from centrifuger_tpu_torch.fm import device as fd
+    off = fd.offset_rows_view(fm, OFFSET)
+    c, sp, _ = probe_tensors(fm, MANY_ROWS, seed=8)
+    got = fd.rank_sym(off, c, sp)
+    twin = off.rank_sym(c.long(), sp.long())
+    base = fd.rank_sym(fm, c, sp)
+    err = max(max_abs_err(g, w) for g, w in zip(got, twin))
+    err_o = max(max_abs_err(got[0], base[0] + OFFSET), max_abs_err(got[1], base[1]))
+    if err or err_o:
+        fail("%s: offset-rows rank: err %d against the twin, %d against rank + O"
+             % (label, err, err_o))
+    say("%s: offset-rows rank of %d random rows (O = %d): equal to its twin and to the "
+        "original rank + O (largest rank %d); kernel %.4f ms"
+        % (label, MANY_ROWS, OFFSET, int(got[0].max()),
+           cuda_ms(lambda: fd.rank_sym(off, c, sp), 20)))
+
+
+def unfused_records(label, eng, queries, launches, replaces):
+    """The non-fused engine's kernels on the very tensors it hands their
+    wrappers for one batch of a path of E (the first call of each, as the
+    engine runs it): chain_search_lanes on the batch's strand lanes,
+    prefix_search on the exact path's boundary searches, and resolve_rows on
+    every SA row of the batch's fast units.  A run of many long lanes takes
+    the kernel hundreds of ms and its twin minutes, so those are timed on
+    fewer repeats."""
+    import torch
+    from centrifuger_tpu_torch import kernels
+    from centrifuger_tpu_torch.classify import engine_unfused as engine_mod
+    from centrifuger_tpu_torch.fm import device as fd
+    names = ("chain_search_lanes", "prefix_search", "resolve_rows")
+    with spying(engine_mod, names) as handed:
+        eng.query_batch(queries)
+    fm = eng.dev
+    rec = Records(fm, launches, label.replace("phase 6 ", ""))
+    codes, lengths, mhl, H = handed["chain_search_lanes"]
+    long_lanes = codes.shape[1] > 1024
+    say("%s: the engine hands chain_search_lanes %d lanes x %d codes (H=%d)"
+        % (label, codes.shape[0], codes.shape[1], H))
+    rec.add(kernels.instantiation("chain_search", fm, ("lanes",)), replaces["chain_search"],
+            lambda: fd.chain_search_lanes(fm, codes, lengths, mhl, H),
+            lambda: fd.chain_search_lanes_plain(fm, codes, lengths, mhl, H),
+            nbytes(codes, lengths), reps=5 if long_lanes else 20,
+            plain_reps=0 if long_lanes else 3)
+    if "prefix_search" in handed:
+        codes, ms = handed["prefix_search"]
+        say("%s: the exact path hands prefix_search %d lanes x %d codes (ms %d-%d)"
+            % (label, codes.shape[0], codes.shape[1], int(ms.min()), int(ms.max())))
+        rec.add(kernels.instantiation("prefix_search", fm), replaces["prefix_search"],
+                lambda: fd.prefix_search(fm, codes, ms),
+                lambda: fd.prefix_search_plain(fm, codes, ms), nbytes(codes, ms))
+    elif launches.get(kernels.instantiation("prefix_search", fm)):
+        fail("%s: prefix_search launched on the path but not on its first batch" % label)
+    rows, valid = handed["resolve_rows"]
+    say("%s: the engine hands resolve_rows %d rows" % (label, len(rows)))
+    lib = cuda_ms(lambda: torch.index_select(fm.rowmap, 0, rows), 20)
+    rec.add(kernels.instantiation("resolve_rows", fm), replaces["resolve_rows"],
+            lambda: fd.resolve_rows(fm, rows, valid),
+            lambda: fd.resolve_rows_plain(fm, rows, valid), nbytes(rows, valid), lib)
+    return rec.recs
+
+
+def phase_dep_gather(seed):
+    """K12: the microbenchmark's driver with the launch counts set to 0 just
+    before and read just after, then its kernel against its twin on the
+    probe's inputs."""
+    import torch
+    from centrifuger_tpu_torch import kernels
+    from centrifuger_tpu_torch.tools import micro_gather as mg
+    kernels.reset_launches()
+    got, want, ms, _ = mg.run("cuda", seed)
+    launches = kernels.LAUNCHES.get("dep_gather", 0)
+    if not launches or max_abs_err(got, want):
+        fail("dep_gather: never launched by its driver, or disagrees with its twin")
+    table, idx = mg.make_inputs(seed, "cuda")
+
+    def kernel():
+        return mg.dep_gather(table, idx)
+
+    def plain():
+        return mg.dep_gather_plain(table, idx)
+    err = max_abs_err(kernel(), plain())
+    torch.cuda.synchronize()
+    io_bytes = nbytes(table, idx) + idx.numel() * 4
+    # per lane and step: two loads, xor, modulo, the row address
+    ops = 6 * mg.NITER * idx.numel()
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_MS, ops / OPS_PER_MS
+    rec = dict(name="dep_gather", path="K12", route="cuda", source=CSRC % "dep_gather",
+               replaces="tools/micro_gather.py:110", launches=launches, max_abs_err=err,
+               ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3),
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+               else "operations", library_ms=None)
+    if err:
+        fail("dep_gather disagrees with its plain twin")
+    say("path K12: dep_gather [%d lanes x %d dependent fetches, table %d x %d u32, %.2f MB, "
+        "L2-resident]: err 0  kernel %.4f ms  plain %.4f ms  bound %.6f ms (%s)  launches %d"
+        % (idx.numel(), mg.NITER, table.shape[0], table.shape[1], nbytes(table) / 1e6,
+           rec["ms"], rec["plain_ms"], rec["bound_ms"], rec["bound_by"], launches))
+    return rec
 
 
 def many_ranks_ms(fm):
@@ -809,6 +1009,43 @@ def main():
             ["chain_search:plain:wideftab", "finalize_units:plain", "rank_probe:plain"],
             log)
 
+        # path D: the main index as an int64 index (K9), no rebuild
+        tsv["i64"], launches["i64"] = run_path(
+            "int64", "path D", prefixes["main"], dirs["main"], [], N_PAIRS,
+            keys("plain:i64", *fused), log, force_idtype="int64")
+        tsv["i64_lf"], _ = run_path(
+            "int64 --no-rowmap", "path D", prefixes["main"], dirs["main"], ["--no-rowmap"],
+            N_PAIRS, keys("plain:i64", "chain_search", "finalize_units"), log,
+            force_idtype="int64")
+        tsv["i64_generic"], launches["i64_generic"] = run_path(
+            "int64 runblock (generic)", "path D", prefixes["main"], dirs["main"],
+            ["--serve-layout", "runblock"], N_PAIRS, keys("generic:i64", *fused), log,
+            force_idtype="int64")
+        if any(tsv[k] != tsv["main"] for k in ("i64", "i64_lf", "i64_generic")):
+            fail("an int64 TSV differs from the main path's")
+        say("path D: int64 TSVs (plain, plain --no-rowmap, runblock served as generic) "
+            "identical to the main path's")
+
+        # path E: the non-fused engine, long reads, -k 0
+        unfused = ["chain_search:plain:lanes", "resolve_rows:plain"]
+        tsv["jax"], launches["jax"] = run_path(
+            "--engine jax", "path E", prefixes["main"], dirs["main"], ["--engine", "jax"],
+            N_PAIRS, unfused, log)
+        if tsv["jax"] != tsv["main"]:
+            fail("the --engine jax TSV differs from the main path's")
+        say("path E: --engine jax TSV identical to the main path's")
+        dirs["long"], dirs["k0"] = os.path.join(dirs["main"], "long"), os.path.join(WORK, "k0")
+        tsv["long"], launches["long"] = run_path(
+            "long reads", "path E", prefixes["main"], dirs["long"], [], N_LONG, unfused, log,
+            paired=False)
+        head_pairs(dirs["main"], K0_PAIRS, dirs["k0"])
+        tsv["k0"], launches["k0"] = run_path(
+            "-k 0", "path E", prefixes["main"], dirs["k0"], ["-k", "0"], K0_PAIRS, unfused, log)
+        say("path E: long reads: %d of %d classified; -k 0: %d TSV lines for %d pairs"
+            % (N_LONG - tsv["long"].count("\tunclassified\t"), N_LONG,
+               tsv["k0"].count("\n") - 1, K0_PAIRS))
+        recs_k12 = phase_dep_gather(args.seed)
+
         # rates, device busy and idle share, kernel records: one engine a path.
         # A record names the JAX program its kernel replaces: on paths A and B
         # the rank layout under the four kernels (K7 :372, K8 :521)
@@ -852,6 +1089,46 @@ def main():
         recs += r
         eng._finish_pool().shutdown()
         del eng, bq
+
+        # path D's int64 instantiations (K9: the idtype switch :215, int64
+        # ftab2 :282, 40-bit _wide_occ :487, int64 occ / cum :141)
+        bq = read_batches(dirs["main"])
+        eng = make_engine(prefixes["main"], force_idtype="int64")
+        engine_rates("path D", eng, bq, N_PAIRS, "profile_int64.txt")
+        r, _ = phase_kernels("phase 6 path D", eng, bq, launches["i64"], {
+            "chain_search": jax_fm + "852 + 282", "finalize_units": jax_de + "164",
+            "prefix_search": jax_fm + "1147", "resolve_rows": jax_fm + "707",
+            "rank_probe": jax_fm + "487"}, ref_hits=ref_hits)
+        recs += r
+        offset_rows_check("path D", eng.dev)
+        eng._finish_pool().shutdown()
+        del eng
+        eng = make_engine(prefixes["main"], "runblock", force_idtype="int64")
+        engine_rates("path D runblock (generic)", eng, bq, N_PAIRS,
+                     "profile_int64_generic.txt")
+        r, _ = phase_kernels("phase 6 path D generic", eng, bq, launches["i64_generic"], {
+            k: jax_fm + "141 + 372" for k in fused}, ref_hits=ref_hits)
+        recs += r
+        eng._finish_pool().shutdown()
+        del eng
+
+        # path E: the non-fused engine's rate, then its kernels on each run's
+        # first batch, through the engine the CLI made for that run
+        from centrifuger_tpu_torch.classify.params import ClassifierParam
+        eng = make_engine(prefixes["main"], unfused=True)
+        engine_rates("path E", eng, bq, N_PAIRS, "profile_unfused.txt")
+        unfused_jax = {"chain_search": jax_fm + "852", "prefix_search": jax_fm + "1147",
+                       "resolve_rows": jax_fm + "707"}
+        recs += unfused_records("phase 6 path E --engine jax", eng, bq[0], launches["jax"],
+                                unfused_jax)
+        recs += unfused_records("phase 6 path E long reads", make_engine(
+            prefixes["main"], dev=eng.dev), read_batches(dirs["long"], paired=False)[0],
+            launches["long"], unfused_jax)
+        recs += unfused_records("phase 6 path E -k 0", make_engine(
+            prefixes["main"], dev=eng.dev, param=ClassifierParam(max_result=0)), bq[0],
+            launches["k0"], unfused_jax)
+        recs.append(recs_k12)
+        del eng, bq, ref_hits
         torch.cuda.empty_cache()
 
         # the head of each path's reads on the CPU (plain versions)
@@ -861,6 +1138,10 @@ def main():
                        tsv["protein"], [], log)
         check_cpu_head("path C", "ftab12", prefixes["ftab12"], dirs["ftab12"],
                        tsv["ftab12"], [], log)
+        check_cpu_head("path E", "long", prefixes["main"], dirs["long"], tsv["long"], [],
+                       log, paired=False)
+        check_cpu_head("path E", "k0", prefixes["main"], dirs["k0"], tsv["k0"], ["-k", "0"],
+                       log)
 
         say("total %.1f s" % (time.time() - t_start))
         print(smi)

@@ -125,12 +125,10 @@ def test_engine_vs_host_oracle_random(tmp_path_factory, paired, k):
 
 
 def test_read_over_l_max(tmp_path_factory):
-    """A read over L_MAX needs the non-fused device engine.  On the CPU the
-    port takes the exact host route and agrees with the JAX package's host
-    engine; an engine on the card raises, naming the slice that ports it.
-    The device is read only by that check, so a CPU engine relabelled cuda
-    stands in for one on the card.  The read is mostly N, which keeps the
-    host engine's work small."""
+    """A read over L_MAX goes to the non-fused engine on the engine's own
+    device, as the JAX package's fused engine hands it to ClassifierJax, and
+    agrees with the JAX package's host engine.  The read is mostly N, which
+    keeps the host engine's work small."""
     oracle, port = engines(port_index("tiny", tmp_path_factory), 1)
     read = np.frombuffer(("N" * 8100 + tiny_genomes()[0][500:600]).encode(), np.uint8)
     assert len(read) > port.L_MAX
@@ -138,18 +136,13 @@ def test_read_over_l_max(tmp_path_factory):
     assert _results_equal(want, port.query_batch([(read, None)])[0])
     [(packed, fb, _)] = port.query_pipelined_packed(iter([[(read, None)]]))
     assert packed is None and _results_equal(want, fb[0])
-    port.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        port.query_batch([(read, None)])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        list(port.query_pipelined_packed(iter([[(read, None)]])))
+    assert port.stats["fast_units"] + port.stats["slow_units"] == 2
 
 
-@pytest.mark.parametrize("flag", [["--engine", "jax"], ["--barcode-whitelist", "w.txt"],
+@pytest.mark.parametrize("flag", [["--barcode-whitelist", "w.txt"],
                                   ["--shards", "2"], ["--merge-readpair"],
                                   ["--read-format", "r1:0:-1"], ["--un", "x"],
-                                  ["--barcode", "b.fq"], ["--sample-sheet", "s.tsv"],
-                                  ["-k", "0"], ["--hitk-factor", "0"]])
+                                  ["--barcode", "b.fq"], ["--sample-sheet", "s.tsv"]])
 def test_unported_flags_exit_naming_the_slice(tmp_path_factory, flag, capsys):
     from centrifuger_tpu_torch.cli import classify_cli
     with pytest.raises(SystemExit) as e:

@@ -34,6 +34,10 @@ def imported_modules(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = port_files()
     assert len(files) > 20
+    rel = {os.path.relpath(p, REPO) for p in files}
+    assert {"centrifuger_tpu_torch/classify/finalize.py",
+            "centrifuger_tpu_torch/classify/engine_unfused.py",
+            "centrifuger_tpu_torch/tools/micro_gather.py"} <= rel
     bad = [(os.path.relpath(p, REPO), m) for p in files for m in imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -42,11 +46,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_kernel_sources_exist_for_every_kernel():
     from centrifuger_tpu_torch import kernels
     csrc = os.path.join(REPO, "centrifuger_tpu_torch", "kernels", "csrc")
+    assert "dep_gather" in kernels.KERNELS
     for k in kernels.KERNELS:
         with open(os.path.join(csrc, k + ".cu")) as f:
             src = f.read()
         assert 'extern "C" int %s_launch(' % k in src
-        assert "centrifuger_tpu/" in src          # names the JAX program it replaces
+        # names the JAX program (or, for K12, the Pallas probe) it replaces
+        replaces = "tools/micro_gather.py" if k == "dep_gather" else "centrifuger_tpu/"
+        assert replaces in src
 
 
 def _no_cuda():
@@ -63,14 +70,32 @@ def test_torch_fm_defaults_to_cuda_and_raises_without_it():
         TorchFM(fm_arrays(fm))
 
 
-def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path_factory):
+def test_unfused_engine_defaults_to_cuda_and_raises_without_it():
+    _no_cuda()
+    from centrifuger_tpu.testutil import synthetic_fm
+    from centrifuger_tpu_torch.classify.engine_unfused import ClassifierTorchUnfused
+    from centrifuger_tpu_torch.classify.params import ClassifierParam
+    fm, _ = synthetic_fm(n_genomes=2, genome_len=3000, seed=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ClassifierTorchUnfused(fm, None, ClassifierParam())
+
+
+def test_micro_gather_defaults_to_cuda_and_raises_without_it():
+    _no_cuda()
+    from centrifuger_tpu_torch.tools import micro_gather
+    with pytest.raises(RuntimeError, match="cuda"):
+        micro_gather.run()
+
+
+@pytest.mark.parametrize("engine", [[], ["--engine", "jax"]])
+def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path_factory, engine):
     _no_cuda()
     from test_torch_golden import port_index
     from conftest import FIXTURE_DIR
     from centrifuger_tpu_torch.cli import classify_cli
     with pytest.raises(RuntimeError, match="cuda"):
         classify_cli.main(["-x", port_index("tiny", tmp_path_factory), "-u",
-                           os.path.join(FIXTURE_DIR, "tiny", "reads_1.fq")])
+                           os.path.join(FIXTURE_DIR, "tiny", "reads_1.fq")] + engine)
 
 
 def test_wrappers_refuse_cpu_tensors_on_the_kernel_path():

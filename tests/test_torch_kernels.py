@@ -196,11 +196,11 @@ def check_rank_probe(tfm, c, sp, ep):
     pos[:2] = -1
     want = tfm.rank_sym(c.long(), pos.long())
     got = fd.rank_sym(tfm, c, pos)
-    assert all(torch.equal(g, w.int()) for g, w in zip(got, want))
+    assert all(torch.equal(g, w.to(tfm.idtype)) for g, w in zip(got, want))
     want = tfm.backward_extend(c.long(), sp.long(), ep.long())
     got = fd.backward_extend(tfm, c, sp, ep)
-    assert all(torch.equal(g, w.int()) for g, w in zip(got, want))
-    assert torch.equal(fd.lf(tfm, sp), tfm.lf(sp.long()).int())
+    assert all(torch.equal(g, w.to(tfm.idtype)) for g, w in zip(got, want))
+    assert torch.equal(fd.lf(tfm, sp), tfm.lf(sp.long()).to(tfm.idtype))
 
 
 @pytest.mark.parametrize("layout", fd.LAYOUTS)
@@ -274,3 +274,160 @@ def test_launch_counts_name_layout_and_variant(layouts_gpu, protein_gpu):
     assert dict(kernels.LAUNCHES) == {"chain_search:runblock": 1,
                                       "chain_search:generic:lanes": 1,
                                       "finalize_units:generic:protein": 1}
+
+
+# -------------------------- int64 indexes (K9) and the non-fused engine
+
+def forced64(fm, layout="plain", rowmap=True):
+    fields = fd.fm_arrays(fm)
+    if not rowmap:
+        fields["rowmap"] = None
+    return fd.TorchFM(fields, device="cuda", serve_layout=layout, force_idtype="int64")
+
+
+@pytest.mark.parametrize("rowmap", [True, False])
+@pytest.mark.parametrize("layout", ["plain", "runblock"])
+def test_kernels_int64(layouts_gpu, layout, rowmap):
+    """Every i64 instantiation against its twin and against the int32
+    kernels: plain x int64 and (runblock served as) generic x int64."""
+    from centrifuger_tpu_torch import kernels
+    fm, fms, (pack2, vmask, lengths) = layouts_gpu
+    tfm, ref = forced64(fm, layout, rowmap), fms["plain", rowmap]
+    assert tfm.layout == ("generic" if layout == "runblock" else "plain")
+    kernels.reset_launches()
+    hits, nh = de.chain_search(tfm, pack2, vmask, lengths, 23, 6)
+    assert hits.dtype == torch.int64
+    want = de.chain_search_plain(tfm, pack2, vmask, lengths, 23, 6)
+    assert torch.equal(hits, want[0]) and torch.equal(nh, want[1])
+    rhits, rnh = de.chain_search(ref, pack2, vmask, lengths, 23, 6)
+    assert torch.equal(hits, rhits.long()) and torch.equal(nh, rnh)
+    for nr in (1, 2):
+        got = de.finalize_units(tfm, hits, nh, nr, 23, 40, 8)
+        assert torch.equal(got, de.finalize_units_plain(tfm, hits, nh, nr, 23, 40, 8))
+        assert torch.equal(got, de.finalize_units(ref, rhits, rnh, nr, 23, 40, 8))
+    rows = torch.from_numpy(np.random.default_rng(0).integers(0, tfm.n, 4096)).cuda()
+    valid = torch.rand(4096, device="cuda") < 0.8
+    got = fd.resolve_rows(tfm, rows, valid)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, fd.resolve_rows_plain(tfm, rows, valid))
+    assert torch.equal(got, fd.resolve_rows(ref, rows.int(), valid).long())
+    cf, _ = de.decode_packed_dna(pack2, vmask, lengths)
+    codes = cf.to(torch.uint8).contiguous()
+    ms = (lengths * torch.rand(len(lengths), device="cuda")).int()
+    got = fd.prefix_search(tfm, codes, ms)
+    want = fd.prefix_search_plain(tfm, codes, ms)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    c, sp, ep = (x.long() for x in probe_queries(fm, 3))
+    check_rank_probe(tfm, c, sp, ep)
+    launched = {k.split(":")[0] for k in kernels.LAUNCHES if ":i64" in k}
+    assert launched == {"chain_search", "finalize_units", "resolve_rows", "prefix_search",
+                        "rank_probe"}
+
+
+def test_kernels_int64_protein(protein_gpu):
+    fm, _, codes, lengths = protein_gpu
+    tfm = forced64(fm)
+    assert tfm.layout == "generic" and tfm.rowmap is None
+    hits, nh = fd.chain_search_lanes(tfm, codes, lengths, 11, 6)
+    want = fd.chain_search_lanes_plain(tfm, codes, lengths, 11, 6)
+    assert torch.equal(hits, want[0]) and torch.equal(nh, want[1])
+    got = de.finalize_units(tfm, hits, nh, 2, 11, 40, 8, protein=True)
+    assert torch.equal(got, de.finalize_units_plain(tfm, hits, nh, 2, 11, 40, 8,
+                                                    protein=True))
+    rows = torch.arange(tfm.n, dtype=torch.int64, device="cuda")
+    valid = torch.ones(tfm.n, dtype=torch.bool, device="cuda")
+    assert torch.equal(fd.resolve_rows(tfm, rows, valid),
+                       fd.resolve_rows_plain(tfm, rows, valid))
+    check_rank_probe(tfm, *(x.long() for x in probe_queries(fm, 4)))
+
+
+def test_offset_rows_rank_int64(gpu):
+    """The 40-bit occ on the card: offset rows rank O higher at pos >= 0, as
+    their twin does."""
+    tfm32 = gpu[0]
+    tfm = fd.TorchFM(fd.fm_arrays(_gpu_fm()), device="cuda", force_idtype="int64")
+    O = 5 * 2 ** 32 + 12345
+    off = fd.offset_rows_view(tfm, O)
+    rng = np.random.default_rng(7)
+    pos = torch.from_numpy(np.concatenate([[-1, 0, tfm.n - 1, 1919, 1920],
+                                           rng.integers(0, tfm.n, 8192)])).cuda()
+    c = torch.from_numpy(rng.integers(0, 4, len(pos))).cuda()
+    r, s = fd.rank_sym(off, c, pos)
+    rt, st = off.rank_sym(c, pos)
+    assert torch.equal(r, rt) and torch.equal(s, st)
+    r0, s0 = fd.rank_sym(tfm32, c.int(), pos.int())
+    assert torch.equal(s, s0.long())
+    assert torch.equal(r, torch.where(pos >= 0, r0.long() + O, 0))
+
+
+def _gpu_fm():
+    return synthetic_fm(n_genomes=3, genome_len=12000, seed=11)[0]
+
+
+def test_dep_gather_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    from centrifuger_tpu_torch.tools import micro_gather as mg
+    table, idx = mg.make_inputs(3, "cuda", nrow=4099, lanes=3000)
+    got = mg.dep_gather(table, idx, 37)
+    assert torch.equal(got, mg.dep_gather_plain(table, idx, 37))
+    got, want, ms, plain_ms = mg.run("cuda")
+    assert torch.equal(got, want) and ms > 0
+
+
+def _results(res):
+    return [(r.score, r.secondary_score, r.hit_length, r.query_length, r.tax_ids,
+             r.seq_names) for r in res]
+
+
+@pytest.fixture(scope="module")
+def port_small(tmp_path_factory):
+    """The small fixture indexed by the port's builder, loaded by the port."""
+    import contextlib
+    import io
+    import os
+    from centrifuger_tpu_torch.build import build_index, load_index
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "small")
+    prefix = str(tmp_path_factory.mktemp("port_small") / "idx")
+    with contextlib.redirect_stderr(io.StringIO()):
+        build_index([os.path.join(d, "ref.fa")], os.path.join(d, "nodes.dmp"),
+                    os.path.join(d, "names.dmp"), os.path.join(d, "ref_seqid.map"),
+                    conversion_at_file_level=False, output_prefix=prefix)
+    fm, tax, _, _ = load_index(prefix)
+    genomes = []
+    with open(os.path.join(d, "ref.fa")) as f:
+        for line in f:
+            if line.startswith(">"):
+                genomes.append([])
+            else:
+                genomes[-1].append(line.strip())
+    return fm, tax, [np.frombuffer("".join(g).encode(), np.uint8) for g in genomes]
+
+
+@pytest.mark.parametrize("idtype", ["int32", "int64"])
+@pytest.mark.parametrize("k,hitk", [(1, 40), (0, 40), (2, 0)])
+def test_unfused_engine_on_card(port_small, k, hitk, idtype):
+    """ClassifierTorchUnfused on the card equals it on the CPU (the twins),
+    and ClassifierTorch hands it -k 0, --hitk-factor 0 and long reads."""
+    from centrifuger_tpu_torch.classify.engine import ClassifierTorch
+    from centrifuger_tpu_torch.classify.engine_unfused import ClassifierTorchUnfused
+    from centrifuger_tpu_torch.classify.params import ClassifierParam
+    fm, tax, genomes = port_small
+    rng = np.random.default_rng(k + hitk)
+    qs = []
+    for i in range(64):
+        g = genomes[rng.integers(0, len(genomes))]
+        ln = 9000 if i == 0 else 100
+        p = int(rng.integers(0, len(g) - ln))
+        qs.append((g[p:p + ln].copy(), None if i % 2 else g[p:p + 100].copy()))
+    out = {}
+    for device in ("cuda", "cpu"):
+        param = ClassifierParam(max_result=k, max_result_per_hit_factor=hitk)
+        eng = ClassifierTorchUnfused(fm, tax, param, device=device, force_idtype=idtype)
+        out[device] = _results(eng.query_batch(qs))
+    assert out["cuda"] == out["cpu"]
+    fused = ClassifierTorch(fm, tax, ClassifierParam(max_result=k, max_result_per_hit_factor=hitk),
+                            device="cuda", force_idtype=idtype)
+    assert _results(fused.query_batch(qs)) == out["cpu"]
