@@ -13,7 +13,9 @@ Q read units (nr mates each) the device runs
 
 and packs the result rows plus the first FB_CAP flagged units' chains into
 one flat int32 `host_blob`, the layout centrifuger_tpu ships to its host
-finish stage.  The chains are in the index type: on an int64 index each
+finish stage.  On a sharded index (parallel/sharded.py, kernel K10) each
+device that holds shards runs both kernels on its share of the units.  The
+chains are in the index type: on an int64 index each
 (sp, ep, l, off) of the blob is two int32 words, lo then hi, where the JAX
 program casts them to int32 (device_engine.py:463-465) and wraps sp and ep
 from n = 2^31 on.  Each kernel has a plain PyTorch twin here with the same
@@ -331,9 +333,8 @@ def fused_classify(fm, pack2, vmask, lengths, nr, mhl, H, max_result,
     hits [2U, H, 4] (index type), nhits [2U], fb_units, fb_hits, fb_nh and
     host_blob (int32)."""
     _check_row_budget(pack2.shape[0] // nr, r_cap)
-    hits, nhits = chain_search(fm, pack2, vmask, lengths, mhl, H)
-    return _finish_program(fm, hits, nhits, nr, mhl, max_result * hitk_factor,
-                           k_out, protein=False)
+    return _run_program(fm, chain_search, (pack2, vmask, lengths), nr, mhl, H,
+                        max_result * hitk_factor, k_out, protein=False)
 
 
 def fused_classify_protein(fm, codes, lengths, nr, mhl, H, max_result,
@@ -343,9 +344,8 @@ def fused_classify_protein(fm, codes, lengths, nr, mhl, H, max_result,
     per read fwd frames 0..2 then rc frames 0..2, lengths int32 [6U], U =
     Q * nr.  Returns the tensors of fused_classify, with hits [6U, H, 4]."""
     _check_row_budget(codes.shape[0] // (6 * nr), r_cap)
-    hits, nhits = chain_search_lanes(fm, codes, lengths, mhl, H)
-    return _finish_program(fm, hits, nhits, nr, mhl, max_result * hitk_factor,
-                           k_out, protein=True)
+    return _run_program(fm, chain_search_lanes, (codes, lengths), nr, mhl, H,
+                        max_result * hitk_factor, k_out, protein=True)
 
 
 def _check_row_budget(Q, r_cap):
@@ -353,8 +353,17 @@ def _check_row_budget(Q, r_cap):
         raise ValueError("the per-unit row budget r_cap // Q must be %d" % U_CAP)
 
 
-def _finish_program(fm, hits, nhits, nr, mhl, max_entries, k_out, protein):
-    packed = finalize_units(fm, hits, nhits, nr, mhl, max_entries, k_out, protein)
+def _run_program(fm, chains, reads, nr, mhl, H, max_entries, k_out, protein):
+    """chains(fm, *reads, mhl, H), finalize_units on its chains, and the
+    outputs packed.  On a ShardedIndex whose shards span several devices each
+    device runs the two kernels on its share of whole units (nr reads a unit,
+    6 nr code lanes on the protein path) and the outputs are gathered on the
+    first (fm.over_devices)."""
+    def program(view, *rd):
+        hits, nhits = chains(view, *rd, mhl, H)
+        return finalize_units(view, hits, nhits, nr, mhl, max_entries, k_out,
+                              protein), hits, nhits
+    packed, hits, nhits = fm.over_devices(program, (6 if protein else 1) * nr, *reads)
     return pack_results(packed, hits, nhits, (6 if protein else 2) * nr)
 
 

@@ -3,7 +3,9 @@
 Port of centrifuger_tpu.cli.classify_cli: the same flags (flag-compatible
 with `centrifuger`, reference CentrifugerClass.cpp:20-64) plus --device.
 The flags whose modules are not ported yet exit with an error that names the
-ROADMAP item that brings them.
+ROADMAP item that brings them.  --shards N serves through a sharded index
+(parallel/sharded.py): N shards round-robin over the CUDA devices, all on one
+card where there is one.
 
   python -m centrifuger_tpu_torch.cli.classify_cli -x IDX -1 r1.fq -2 r2.fq
 """
@@ -24,8 +26,6 @@ from ..io.writer import ResultWriter
 
 # flag -> (is it set?, the ROADMAP item that ports it)
 _NOT_PORTED = [
-    ("--shards", lambda a: a.shards > 1,
-     "sharded multi-GPU serving (ROADMAP queue 1 item 10, kernel K10)"),
     ("--read-format", lambda a: a.read_format,
      "the read formatter (ROADMAP: CLI read-prep features)"),
     ("--barcode/--UMI/--barcode-whitelist/--barcode-translate",
@@ -45,18 +45,33 @@ def log(msg):
 
 
 def make_classifier(fm, tax, param, protein, engine, device="cuda",
-                    no_rowmap=False, serve_layout="plain", force_idtype=None):
+                    no_rowmap=False, serve_layout="plain", force_idtype=None,
+                    shards=0, shard_devices=None):
+    """The engine the CLI runs.  shards > 1 serves a nucleotide index through
+    a ShardedIndex of that many shards, round-robin over shard_devices
+    (default: the first min(shards, device count) CUDA devices; on the CPU,
+    the CPU); a protein index ignores it, as the JAX CLI does."""
     if engine == "numpy":
         from ..classify.engine_np import ClassifierNP
         return ClassifierNP(fm, tax, param, protein=protein)
     if no_rowmap:
         fm.rowmap = None
+    dev = None
+    if shards > 1 and not protein:
+        from ..fm.device import TorchFM, fm_arrays, resolve_device
+        from ..parallel.sharded import ShardedIndex
+        if shard_devices is None and resolve_device(device).type == "cpu":
+            shard_devices = ["cpu"]
+        # made on the host and cut there; ShardedIndex refuses a layout but plain
+        host = TorchFM(fm_arrays(fm), "cpu", serve_layout, force_idtype)
+        dev = ShardedIndex(host, shards, shard_devices)
     if engine == "jax":
         from ..classify.engine_unfused import ClassifierTorchUnfused
-        return ClassifierTorchUnfused(fm, tax, param, protein=protein, device=device,
-                                      serve_layout=serve_layout, force_idtype=force_idtype)
+        return ClassifierTorchUnfused(fm, tax, param, protein=protein, dev=dev,
+                                      device=device, serve_layout=serve_layout,
+                                      force_idtype=force_idtype)
     from ..classify.engine import ClassifierTorch
-    return ClassifierTorch(fm, tax, param, protein=protein, device=device,
+    return ClassifierTorch(fm, tax, param, protein=protein, dev=dev, device=device,
                            serve_layout=serve_layout, force_idtype=force_idtype)
 
 
@@ -98,7 +113,10 @@ def main(argv=None):
     ap.add_argument("--no-rowmap", action="store_true",
                     help="ignore the rowmap resolve accelerator even if the "
                          "index carries one (SA resolve walks LF instead)")
-    ap.add_argument("--shards", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="row-shard the index's big tables into N shards, round-robin "
+                         "over the CUDA devices (all on one card where there is one); "
+                         "needs the plain serving layout; ignored for a protein index")
     ap.add_argument("--batch-size", type=int, default=0,
                     help="reads per device batch (0 = auto)")
     ap.add_argument("--device", default="cuda",
@@ -117,6 +135,10 @@ def main(argv=None):
         ap.error("reference-built .cfr indexes are not ported yet to "
                  "centrifuger_tpu_torch (ROADMAP: interop); build with cfr-build-torch")
     protein = is_protein_index(args.index)
+    if args.shards > 1 and not protein and args.engine != "numpy" and \
+            args.serve_layout != "plain":
+        ap.error("--shards needs the plain serving layout (its wide rank rows are "
+                 "what is sharded): drop --serve-layout runblock")
     fm, tax, seq_length, meta = load_index(args.index)
     log("Finishes loading index.")
 
@@ -141,13 +163,19 @@ def main(argv=None):
 
     classifier = make_classifier(fm, tax, param, protein, args.engine,
                                  device=args.device, no_rowmap=args.no_rowmap,
-                                 serve_layout=args.serve_layout)
+                                 serve_layout=args.serve_layout, shards=args.shards)
+    if getattr(classifier, "dev", None) is not None and \
+            classifier.dev.layout == "plain_sharded":
+        log(classifier.dev.placement_text())
     log("Inferred --min-hitlen: %d" % classifier.param.min_hit_len)
 
     writer = ResultWriter()
     writer.output_expanded = args.expand_taxid
     writer.output_header()
     batch_size = args.batch_size or 1024 * max(args.threads, 8)
+    if args.shards > 1:
+        # as the JAX CLI, which shards the read lanes over the mesh axis too
+        batch_size = -(-batch_size // args.shards) * args.shards
 
     def iter_units():
         it1 = iter(reads)

@@ -421,6 +421,12 @@ class TorchFM(nn.Module):
     def device(self):
         return self.psum.device
 
+    def over_devices(self, fn, rows_per_unit, *tensors):
+        """fn(self, *tensors): the whole batch on this index's one device (a
+        sharded index spread over several cards splits it by units of
+        rows_per_unit rows: parallel/sharded.py)."""
+        return fn(self, *tensors)
+
     @property
     def wide_ftab(self):
         """The ftab key and the per-position fields no longer pack into 31
@@ -436,8 +442,24 @@ class TorchFM(nn.Module):
         occ_bytes = 8 if self.idtype == torch.int64 else 4   # + the hi word
         self.account(lambda: (occ_bytes + 4 * _ceil_div(
             torch.remainder(pos + 1, WIDE_BLOCK), 16)).sum())
-        return self.rows[torch.div(pos + 1, WIDE_BLOCK,
-                                   rounding_mode="floor")].long() & _M32
+        return self._plain_rows_fetch(torch.div(pos + 1, WIDE_BLOCK,
+                                                rounding_mode="floor")).long() & _M32
+
+    # The three big tables' reads (DeviceFM's hooks of the same names, which
+    # the sharded index routes to the owner shard: parallel/sharded.py)
+
+    def _plain_rows_fetch(self, r):
+        """Wide rows r [M] -> int32 [M, 128]."""
+        return self.rows[r]
+
+    def _rowmap_fetch(self, rows):
+        """rowmap[rows], rows [M] in [0, n)."""
+        self.account(lambda: 4 * len(rows))
+        return self.rowmap[rows]
+
+    def _sampled_sa_fetch(self, slot):
+        """sampled_sa[slot], slot [M] in range."""
+        return self.sampled_sa[slot]
 
     @staticmethod
     def _prefix_count(row, c, pos1):
@@ -663,8 +685,7 @@ class TorchFM(nn.Module):
         first = rows == self.first_isa
         samp = ~first & (torch.remainder(rows, self.sample_rate) == 0)
         slot = torch.div(rows, self.sample_rate, rounding_mode="floor")
-        val = torch.where(samp, self.sampled_sa[
-            slot.clamp(0, len(self.sampled_sa) - 1)].long(), torch.zeros_like(rows))
+        val = _on(samp, lambda s: self._sampled_sa_fetch(s).long(), slot)
         val = torch.where(first, torch.full_like(rows, self.adjusted_sa0), val)
         if self.sel_rows is not None:
             is_sel, pos = self._sel_lookup(rows)
@@ -874,8 +895,7 @@ def resolve_rows_plain(fm, rows, valid):
     [M] in the index type (0 on invalid lanes)."""
     rows = rows.long()
     if fm.rowmap is not None:
-        fm.account(lambda: 4 * valid.sum())
-        val = fm.rowmap[rows.clamp(0, fm.n - 1)].long()
+        val = _on(valid, lambda r: fm._rowmap_fetch(r).long(), rows.clamp(0, fm.n - 1))
     else:
         cur = torch.where(valid, rows, torch.zeros_like(rows))
         pend = valid.clone()

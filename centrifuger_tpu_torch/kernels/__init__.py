@@ -10,8 +10,11 @@ imported, and there is no fallback: a missing nvcc or a failed build raises.
 LAUNCHES counts the launches each wrapper made, under the name of the
 instantiation, "<kernel>:<rank layout>[:i64][:<variant>...]" (for example
 "chain_search:plain", "chain_search:generic:lanes",
-"chain_search:plain:wideftab", "resolve_rows:generic:i64"; ":i64" marks an
-int64 index, kernel K9); callers reset it with reset_launches().
+"chain_search:plain:wideftab", "resolve_rows:generic:i64",
+"chain_search:plain_sharded"; ":i64" marks an int64 index, kernel K9, and
+"plain_sharded" the plain layout with its big tables row-sharded, kernel
+K10); callers reset it with reset_launches().  A launch runs with the
+index's device current, on that device's current stream.
 
 dep_gather (K12) is a microbenchmark of its own, with no FMView: it is
 launched through launch_raw.
@@ -48,7 +51,7 @@ ENTRIES = {
     "dep_gather": ("dep_gather", "PiPiiP"),
 }
 KERNELS = tuple(dict.fromkeys(src for src, _ in ENTRIES.values()))
-LAYOUT_IDS = {"plain": 0, "runblock": 1, "generic": 2}
+LAYOUT_IDS = {"plain": 0, "runblock": 1, "generic": 2, "plain_sharded": 3}
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
@@ -131,9 +134,13 @@ class FMView(ctypes.Structure):
     _INT64S = ("ftab_size", "n", "first_isa", "adjusted_sa0", "lit_n", "run_n")
     _INTS = ("layout", "idx64", "last_chr", "sample_rate", "pw", "code_bits", "sigma",
              "n_sel", "n_end", "b", "b_lt_n", "width", "m_lit", "m_run")
+    _SHARDED = ([(p, ctypes.c_void_p) for p in ("rows_shards", "rowmap_shards",
+                                                "sampled_shards")]
+                + [(i, ctypes.c_int64) for i in ("rps_map", "rps_sa")]
+                + [(i, ctypes.c_int32) for i in ("rps_rows", "n_shards", "has_rowmap")])
     _fields_ = ([(p, ctypes.c_void_p) for p in _POINTERS]
                 + [(i, ctypes.c_int64) for i in _INT64S]
-                + [(i, ctypes.c_int32) for i in _INTS])
+                + [(i, ctypes.c_int32) for i in _INTS] + _SHARDED)
 
 
 def _fm_view(fm):
@@ -142,14 +149,9 @@ def _fm_view(fm):
 
     def sub(m, name):
         return None if m is None else getattr(m, name).data_ptr()
-    return FMView(
-        rows=ptr(fm.rows), mega=ptr(fm.mega),
-        ind_words=sub(fm.ind, "words"), ind_cum=sub(fm.ind, "cum"),
-        lit_words=sub(fm.lit, "words"), lit_occ=sub(fm.lit, "occ"),
-        run_words=sub(fm.run, "words"), run_occ=sub(fm.run, "occ"),
-        ftab=ptr(fm.ftab), psum=ptr(fm.psum), sampled_sa=ptr(fm.sampled_sa),
-        sel_rows=ptr(fm.sel_rows), sel_vals=ptr(fm.sel_vals),
-        end_marker_sa=ptr(fm.end_marker_sa), rowmap=ptr(fm.rowmap),
+    common = dict(
+        ftab=ptr(fm.ftab), psum=ptr(fm.psum), sel_rows=ptr(fm.sel_rows),
+        sel_vals=ptr(fm.sel_vals), end_marker_sa=ptr(fm.end_marker_sa),
         ftab_size=fm.ftab_size, layout=LAYOUT_IDS[fm.layout],
         idx64=int(fm.idtype == torch.int64), n=fm.n,
         first_isa=fm.first_isa, last_chr=fm.last_chr, sample_rate=fm.sample_rate,
@@ -157,9 +159,19 @@ def _fm_view(fm):
         sigma=fm.sigma,
         n_sel=0 if fm.sel_rows is None else len(fm.sel_rows),
         n_end=0 if fm.end_marker_sa is None else len(fm.end_marker_sa),
-        b=fm.b, b_lt_n=int(fm.b_lt_n),
+        b=fm.b, b_lt_n=int(fm.b_lt_n))
+    if fm.layout == "plain_sharded":
+        # the three big tables are read through their shard tables only
+        return FMView(**common, **fm.shard_fields())
+    return FMView(
+        **common, rows=ptr(fm.rows), mega=ptr(fm.mega),
+        ind_words=sub(fm.ind, "words"), ind_cum=sub(fm.ind, "cum"),
+        lit_words=sub(fm.lit, "words"), lit_occ=sub(fm.lit, "occ"),
+        run_words=sub(fm.run, "words"), run_occ=sub(fm.run, "occ"),
+        sampled_sa=ptr(fm.sampled_sa), rowmap=ptr(fm.rowmap),
         width=0 if fm.lit is None else fm.lit.width,
-        lit_n=fm.lit_n, run_n=fm.run_n, m_lit=fm.m_lit, m_run=fm.m_run)
+        lit_n=fm.lit_n, run_n=fm.run_n, m_lit=fm.m_lit, m_run=fm.m_run,
+        has_rowmap=int(fm.rowmap is not None))
 
 
 def instantiation(kernel, fm, variant=()):
@@ -186,9 +198,35 @@ def launch_raw(entry, device, *args):
         LAUNCHES[ENTRIES[entry][0]] += 1
 
 
+def enable_peer_access(device, peer):
+    """Let kernels that run on CUDA device `device` read memory of device
+    `peer` (ints).  Raises where the pair has no peer access or enabling it
+    fails; an access enabled before is no error."""
+    lib = _lib(KERNELS[0])
+    fn = lib.cfr_enable_peer_access
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    can = ctypes.c_int(0)
+    rc = fn(int(device), int(peer), ctypes.byref(can))
+    if rc != 0:
+        raise RuntimeError("enabling peer access from cuda:%d to cuda:%d failed: %s"
+                           % (device, peer, _error_string(lib, rc)))
+    if not can.value:
+        raise RuntimeError("cuda:%d cannot access the memory of cuda:%d "
+                           "(cudaDeviceCanAccessPeer is 0)" % (device, peer))
+
+
+def _error_string(lib, rc):
+    err = lib.cfr_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return "CUDA error %d (%s)" % (rc, err(rc).decode())
+
+
 def _call(entry, args, device, view):
     """Check the arguments, then call `<entry>_launch` (with the FMView that
-    view() makes first, where view is given) and raise on a CUDA error."""
+    view() makes first, where view is given) with `device` current and raise
+    on a CUDA error."""
     kernel, sig = ENTRIES[entry]
     if len(args) != len(sig):
         raise TypeError("%s takes %d arguments, got %d" % (entry, len(sig), len(args)))
@@ -207,10 +245,11 @@ def _call(entry, args, device, view):
                    + [ctypes.c_void_p if k == "P" else ctypes.c_int for k in sig]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    rc = fn(*lead, *cargs, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(*lead, *cargs, stream)
+    else:   # an index on another card (a sharded index's view): its context
+        with torch.cuda.device(device):
+            rc = fn(*lead, *cargs, stream)
     if rc != 0:
-        err = lib.cfr_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        raise RuntimeError("%s launch failed: CUDA error %d (%s)"
-                           % (entry, rc, err(rc).decode()))
+        raise RuntimeError("%s launch failed: %s" % (entry, _error_string(lib, rc)))

@@ -7,11 +7,16 @@
 //                               pos; pos >= -1, and -1 gives rank 0
 //   backward_extend(f, c, sp, ep, &nsp, &nep)   FMIndex::BackwardExtend
 //   lf(f, p)                    the LF-mapping of row p >= 0
+//   has_rowmap(f)               the index has a rowmap
+//   rowmap_at(f, i)             rowmap[i], 0 <= i < n
+//   sampled_at(f, i)            sampled_sa[i]
 //
 // PlainLayout<Idx> (rank_plain.cuh), MegaLayout (rank_mega.cuh, int32 only)
 // and GenericLayout<Idx> (rank_runblock.cuh) give the same values on the same
-// index; the kernels are templates over the layout and CFR_DISPATCH_LAYOUT
-// picks the instantiation from FMView::layout and FMView::idx64.  The int64
+// index, and so does ShardedPlainLayout<Idx>, the plain layout whose wide
+// rows, rowmap and sampled SA are row-sharded (kernel K10); the kernels are
+// templates over the layout and CFR_DISPATCH_LAYOUT picks the instantiation
+// from FMView::layout and FMView::idx64.  The int64
 // instantiations are kernel K9 (centrifuger_tpu/fm/device.py DeviceFM's
 // idtype switch, :215-231): positions, ranks and the index tables in 64 bits,
 // symbols, read positions and table words in 32.  Each function is
@@ -46,8 +51,23 @@ __device__ __forceinline__ void extend_by_rank_sym(const FMView& f, int32_t c,
     *nep = off + r_ep + ((last && ep < fi) ? 1 : 0) - 1;
 }
 
+// The rowmap and the sampled SA read from the whole tables: the table access
+// of every layout but the sharded one.
+template <class Idx>
+struct WholeTables {
+  static __device__ __forceinline__ bool has_rowmap(const FMView& f) {
+    return f.rowmap != nullptr;
+  }
+  static __device__ __forceinline__ Idx rowmap_at(const FMView& f, Idx i) {
+    return __ldg(f.rowmap + i);
+  }
+  static __device__ __forceinline__ Idx sampled_at(const FMView& f, Idx i) {
+    return tab<Idx>(f.sampled_sa, i);
+  }
+};
+
 template <class Idx_>
-struct PlainLayout {
+struct PlainLayout : WholeTables<Idx_> {
   using Idx = Idx_;
   static __device__ __forceinline__ Idx rank_sym(const FMView& f, int32_t c, Idx pos,
                                                  int32_t* sym) {
@@ -61,7 +81,7 @@ struct PlainLayout {
 };
 
 // The mega-table's row math is 32-bit: int32 indexes only (DeviceFM.fast).
-struct MegaLayout {
+struct MegaLayout : WholeTables<int32_t> {
   using Idx = int32_t;
   static __device__ __forceinline__ int32_t rank_sym(const FMView& f, int32_t c, int32_t pos,
                                                      int32_t* sym) {
@@ -83,7 +103,7 @@ struct MegaLayout {
 };
 
 template <class Idx_>
-struct GenericLayout {
+struct GenericLayout : WholeTables<Idx_> {
   using Idx = Idx_;
   static __device__ __forceinline__ Idx rank_sym(const FMView& f, int32_t c, Idx pos,
                                                  int32_t* sym) {
@@ -106,16 +126,56 @@ struct GenericLayout {
   }
 };
 
+// Kernel K10: the plain layout with every read of a sharded table routed to
+// its owner shard (centrifuger_tpu/parallel/sharded.py _ShardedFMView:
+// _plain_rows_fetch, _rowmap_fetch, _sampled_sa_fetch).  Row r of a table
+// lives at shards[r / rps] + r % rps: one load of the shard's address (the
+// D-entry table stays in L1), a divide and a remainder.  One thread runs its
+// lane to completion, so the JAX program's lockstep termination (_loop_any)
+// has no counterpart.  The rowmap index is clamped to [0, n - 1] by
+// resolve_one before it is routed, so no pad row of the last shard is read.
+template <class Idx_>
+struct ShardedPlainLayout {
+  using Idx = Idx_;
+  static __device__ __forceinline__ Idx rank_sym(const FMView& f, int32_t c, Idx pos,
+                                                 int32_t* sym) {
+    return plain_rank_sym<Idx, ShardedRows>(f, c, pos, sym);
+  }
+  static __device__ __forceinline__ void backward_extend(const FMView& f, int32_t c, Idx sp,
+                                                         Idx ep, Idx* nsp, Idx* nep) {
+    extend_by_rank_sym<ShardedPlainLayout>(f, c, sp, ep, nsp, nep);
+  }
+  static __device__ __forceinline__ Idx lf(const FMView& f, Idx p) {
+    return plain_lf<Idx, ShardedRows>(f, p);
+  }
+  static __device__ __forceinline__ bool has_rowmap(const FMView& f) {
+    return f.has_rowmap != 0;
+  }
+  static __device__ __forceinline__ Idx rowmap_at(const FMView& f, Idx i) {
+    const int64_t j = i;
+    return __ldg(reinterpret_cast<const int32_t*>(__ldg(f.rowmap_shards + j / f.rps_map)) +
+                 j % f.rps_map);
+  }
+  static __device__ __forceinline__ Idx sampled_at(const FMView& f, Idx i) {
+    const int64_t j = i;
+    return tab<Idx>(reinterpret_cast<const void*>(__ldg(f.sampled_shards + j / f.rps_sa)),
+                    j % f.rps_sa);
+  }
+};
+
 // Runs the statement with `Layout` naming the rank layout of the index and
 // `Layout::Idx` its index type: plain x {int32, int64}, mega x int32 and
-// generic x {int32, int64}.  Returns cudaErrorInvalidValue from the
-// enclosing launch function for any other pair (TorchFM makes none).
+// generic x {int32, int64}, and sharded plain x {int32, int64}.  Returns
+// cudaErrorInvalidValue from the enclosing launch function for any other pair
+// (TorchFM and ShardedIndex make none).
 #define CFR_DISPATCH_LAYOUT(f, ...)                                                   \
   do {                                                                                \
     if ((f)->idx64) {                                                                 \
       switch ((f)->layout) {                                                          \
         case LAYOUT_PLAIN: { using Layout = PlainLayout<int64_t>; __VA_ARGS__; break; }   \
         case LAYOUT_GENERIC: { using Layout = GenericLayout<int64_t>; __VA_ARGS__; break; } \
+        case LAYOUT_PLAIN_SHARDED: {                                                  \
+          using Layout = ShardedPlainLayout<int64_t>; __VA_ARGS__; break; }           \
         default: return static_cast<int>(cudaErrorInvalidValue);                      \
       }                                                                               \
     } else {                                                                          \
@@ -123,6 +183,8 @@ struct GenericLayout {
         case LAYOUT_PLAIN: { using Layout = PlainLayout<int32_t>; __VA_ARGS__; break; }   \
         case LAYOUT_RUNBLOCK: { using Layout = MegaLayout; __VA_ARGS__; break; }      \
         case LAYOUT_GENERIC: { using Layout = GenericLayout<int32_t>; __VA_ARGS__; break; } \
+        case LAYOUT_PLAIN_SHARDED: {                                                  \
+          using Layout = ShardedPlainLayout<int32_t>; __VA_ARGS__; break; }           \
         default: return static_cast<int>(cudaErrorInvalidValue);                      \
       }                                                                               \
     }                                                                                 \
@@ -146,12 +208,13 @@ template <class Layout>
 __device__ __forceinline__ typename Layout::Idx resolve_one(const FMView& f,
                                                             typename Layout::Idx row) {
   using Idx = typename Layout::Idx;
-  if (f.rowmap) return __ldg(f.rowmap + tmin(tmax(row, Idx(0)), static_cast<Idx>(f.n - 1)));
+  if (Layout::has_rowmap(f))
+    return Layout::rowmap_at(f, tmin(tmax(row, Idx(0)), static_cast<Idx>(f.n - 1)));
   const Idx fi = static_cast<Idx>(f.first_isa);
   Idx cur = row;
   while (true) {
     if (cur == fi) return static_cast<Idx>(f.adjusted_sa0);
-    if (cur % f.sample_rate == 0) return tab<Idx>(f.sampled_sa, cur / f.sample_rate);
+    if (cur % f.sample_rate == 0) return Layout::sampled_at(f, cur / f.sample_rate);
     if (f.n_sel) {
       const int32_t k = sel_find(f, cur);
       if (k >= 0) return tab<Idx>(f.sel_vals, k);

@@ -20,12 +20,30 @@
 #define WIDE_OFF 6
 #define WIDE_PREV 5
 
-template <class Idx>
-__device__ __forceinline__ const uint32_t* wide_row(const FMView& f, Idx pos) {
-  // pos >= -1; row (pos + 1) / 1920 holds the occ before slot (pos + 1)
-  const int32_t r = static_cast<int32_t>((pos + 1) / WIDE_BLOCK);
-  return reinterpret_cast<const uint32_t*>(f.rows) + static_cast<int64_t>(r) * WIDE_WORDS;
-}
+// The wide row that holds pos's rank (pos >= -1; row (pos + 1) / 1920 holds
+// the occ before slot pos + 1), from the whole table.
+struct WholeRows {
+  template <class Idx>
+  static __device__ __forceinline__ const uint32_t* row(const FMView& f, Idx pos) {
+    const int32_t r = static_cast<int32_t>((pos + 1) / WIDE_BLOCK);
+    return reinterpret_cast<const uint32_t*>(f.rows) + static_cast<int64_t>(r) * WIDE_WORDS;
+  }
+};
+
+// ... from its owner shard (kernel K10, _ShardedFMView._plain_rows_fetch of
+// centrifuger_tpu/parallel/sharded.py): one 8-byte load of the shard's
+// address from the D-entry table, which stays in L1, and a 32-bit divide.
+// The row id and rps_rows are below 2^31 (n / 1920 + 1 rows).
+struct ShardedRows {
+  template <class Idx>
+  static __device__ __forceinline__ const uint32_t* row(const FMView& f, Idx pos) {
+    const uint32_t r = static_cast<uint32_t>((pos + 1) / WIDE_BLOCK);
+    const uint32_t rps = static_cast<uint32_t>(f.rps_rows);
+    const uint32_t* shard =
+        reinterpret_cast<const uint32_t*>(__ldg(f.rows_shards + r / rps));
+    return shard + static_cast<int64_t>(r % rps) * WIDE_WORDS;
+  }
+};
 
 // Occurrences of c in the first `upto` (< 1920) symbol slots of a row.
 __device__ __forceinline__ int32_t wide_prefix_count(const uint32_t* row, uint32_t c,
@@ -64,10 +82,10 @@ __device__ __forceinline__ Idx wide_occ(const uint32_t* row, int32_t c) {
 }
 
 // BWT rank_inclusive(c, pos) and, when asked, the symbol at pos; pos = -1
-// gives rank 0.
-template <class Idx>
+// gives rank 0.  Rows is WholeRows or ShardedRows.
+template <class Idx, class Rows = WholeRows>
 __device__ __forceinline__ Idx plain_rank_sym(const FMView& f, int32_t c, Idx pos, int32_t* sym) {
-  const uint32_t* row = wide_row(f, pos);
+  const uint32_t* row = Rows::row(f, pos);
   if (sym) *sym = wide_sym(row, pos);
   if (pos < 0) return 0;
   return wide_occ<Idx>(row, c) +
@@ -75,9 +93,9 @@ __device__ __forceinline__ Idx plain_rank_sym(const FMView& f, int32_t c, Idx po
 }
 
 // LF-mapping of row p >= 0 from one wide row.
-template <class Idx>
+template <class Idx, class Rows = WholeRows>
 __device__ __forceinline__ Idx plain_lf(const FMView& f, Idx p) {
-  const uint32_t* row = wide_row(f, p);
+  const uint32_t* row = Rows::row(f, p);
   const int32_t sym = wide_sym(row, p);
   const Idx rank = wide_occ<Idx>(row, sym) +
                    wide_prefix_count(row, sym, static_cast<int32_t>((p + 1) % WIDE_BLOCK));

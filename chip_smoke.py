@@ -10,6 +10,8 @@ checkout and holds every kernel to its plain PyTorch twin:
   C     a nucleotide index built with --ftabchars 12 (wide ftab)
   D     the main index loaded as an int64 index (force_idtype="int64", K9)
   E     the non-fused engine (--engine jax), long reads and -k 0
+  F     the main index served sharded (--shards N, K10), and the data-parallel
+        step (classify_dp_step, K11)
   K12   the dependent-gather microbenchmark (tools/micro_gather.py)
 
 Phases (any failure exits non-zero and prints no result):
@@ -47,6 +49,17 @@ Phases (any failure exits non-zero and prints no result):
      which hands them to the non-fused engine; and -k 0 on the first 8,192
      pairs.  The long reads and -k 0 are held to a --device cpu run of their
      first 128 reads / pairs.
+  F. the main index and reads through the CLI with --shards 2 (all 65,536
+     pairs), --shards 4 --no-rowmap, the int64 classifier with shards=2 and
+     --engine jax --shards 2 (the first 8,192 pairs each): the big tables cut
+     into shards (all on the one card where there is one; over two cards with
+     peer access as well where there are two), every launch a plain_sharded
+     instantiation, each TSV the main path's (or its head); one batch split
+     over two views of cuda:0 (the split and gather of several cards) equal
+     to the one-view program.  K11: classify_dp_step on one batch's 32,768
+     code lanes of 128 over [cuda:0] and over [cuda:0, cuda:0], and from a
+     host index's replica on cuda:0, equal to each other and to the plain
+     versions.
   K12. the dependent-gather microbenchmark through its driver, then its
      kernel against its twin.
      Each path's run is its reads through the CLI, then the public rank,
@@ -66,10 +79,14 @@ Phases (any failure exits non-zero and prints no result):
      (--engine jax, the long reads, -k 0) chain_search_lanes, prefix_search
      and resolve_rows on the very tensors the non-fused engine hands them for
      the run's first batch (all 1,024 long reads are one batch: 2,048 lanes
-     of 20,032 codes); and dep_gather at the probe's shape.
+     of 20,032 codes); path F's plain_sharded instantiations (int32 and
+     int64, and --engine jax's) the same ways, beside the unsharded kernels'
+     times of this run; classify_dp_step (K11); and dep_gather at the
+     probe's shape.
 
 The second-to-last stdout line is the per-kernel JSON record, the last line
-{"ok": true, "device": {...}}.  Logs go to chiprun_out/.
+{"ok": true, "device": {...}}.  Logs go to chiprun_out/, and so does a copy
+of the standard output (smoke_stdout.txt).
 
   python3 chip_smoke.py [--db-nt N] [--db-aa N] [--seed S]
 """
@@ -123,6 +140,21 @@ def fail(msg):
 
 def say(msg):
     print(msg, flush=True)
+
+
+class Tee:
+    """Writes to the standard output and to a file."""
+
+    def __init__(self, stream, path):
+        self.stream, self.file = stream, open(path, "w")
+
+    def write(self, text):
+        self.file.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.file.flush()
+        self.stream.flush()
 
 
 # ------------------------------------------------------------ synthetic data
@@ -366,18 +398,19 @@ def make_database(kind, size, seed):
         json.dump({"data_s": t1 - t0, "build_s": time.time() - t1}, f)
 
 
-def classify(prefix, reads_dir, extra, log, paired=True, force_idtype=None):
+def classify(prefix, reads_dir, extra, log, paired=True, **make_kw):
     """The port's CLI entry in-process; returns (TSV text, (fast units,
-    fallback units)).  force_idtype makes the CLI's classifier with that index
-    type (make_classifier(..., force_idtype=...))."""
+    fallback units)).  make_kw goes to the make_classifier the CLI calls
+    (force_idtype="int64": the CLI's classifier with that index type;
+    shard_devices)."""
     from centrifuger_tpu_torch.cli import classify_cli
     rargs = (["-1", os.path.join(reads_dir, "reads_1.fq"),
               "-2", os.path.join(reads_dir, "reads_2.fq")] if paired
              else ["-u", os.path.join(reads_dir, "reads_1.fq")])
     buf, err = io.StringIO(), io.StringIO()
     make = classify_cli.make_classifier
-    if force_idtype:
-        classify_cli.make_classifier = functools.partial(make, force_idtype=force_idtype)
+    if make_kw:
+        classify_cli.make_classifier = functools.partial(make, **make_kw)
     try:
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             rc = classify_cli.main(["-x", prefix] + rargs + extra)
@@ -387,6 +420,9 @@ def classify(prefix, reads_dir, extra, log, paired=True, force_idtype=None):
     if rc != 0:
         fail("classify_cli returned %r" % rc)
     m = re.search(r"Device units: (\d+) fast, (\d+) fallback", err.getvalue())
+    placed = re.search(r"sharded index: .*", err.getvalue())
+    if placed:
+        say("  %s" % placed.group(0))
     return buf.getvalue(), (tuple(map(int, m.groups())) if m else None)
 
 
@@ -405,14 +441,19 @@ def read_batches(reads_dir, paired=True):
 
 
 def make_engine(prefix, serve_layout="plain", force_idtype=None, unfused=False,
-                param=None, dev=None):
+                param=None, dev=None, shards=0):
     """The engine the CLI makes (or, unfused, --engine jax's), on the card;
-    dev shares an engine's device index."""
+    dev shares an engine's device index; shards > 1 serves through a
+    ShardedIndex, as --shards does."""
     from centrifuger_tpu_torch.build import load_index, is_protein_index
     from centrifuger_tpu_torch.classify.engine import ClassifierTorch
     from centrifuger_tpu_torch.classify.engine_unfused import ClassifierTorchUnfused
     from centrifuger_tpu_torch.classify.params import ClassifierParam
+    from centrifuger_tpu_torch.fm.device import fm_arrays
+    from centrifuger_tpu_torch.parallel.sharded import ShardedIndex
     fm_host, tax, _, _ = load_index(prefix)
+    if shards > 1:
+        dev = ShardedIndex(fm_arrays(fm_host), shards, force_idtype=force_idtype)
     cls = ClassifierTorchUnfused if unfused else ClassifierTorch
     return cls(fm_host, tax, param or ClassifierParam(), device="cuda", dev=dev,
                protein=is_protein_index(prefix), serve_layout=serve_layout,
@@ -438,6 +479,25 @@ def cuda_ms(fn, reps):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def index_bytes(fm):
+    """(rank-table bytes, all index bytes) of an index on the card: its
+    buffers, and a sharded index's shards."""
+    if fm.layout == "plain_sharded":
+        shards = [t for ts in fm.shards.values() for t in ts]
+        return nbytes(*fm.shards["rows"]), nbytes(*fm.buffers()) + nbytes(*shards)
+    rank_tables = [t for t in (fm.rows, fm.mega) if t is not None] + \
+        [t for m in (fm.ind, fm.lit, fm.run) if m is not None for t in m.buffers()]
+    return nbytes(*rank_tables), nbytes(*fm.buffers())
+
+
+def whole_rowmap(fm):
+    """The rowmap as one tensor, for the library call it is timed against (a
+    sharded index's shards concatenated: the port itself keeps no such
+    copy)."""
+    import torch
+    return torch.cat(fm.shards["rowmap"]) if fm.layout == "plain_sharded" else fm.rowmap
 
 
 def max_abs_err(a, b):
@@ -466,16 +526,18 @@ def phase_goldens(log):
                " (plain; runblock with and without --no-rowmap)"))
 
 
-def probe_index(prefix, serve_layout, force_idtype=None, n_probe=4096):
+def probe_index(prefix, serve_layout, force_idtype=None, n_probe=4096, shards=0):
     """The index's public rank, BackwardExtend and LF on the card (the
     counterparts of DeviceFM.rank / backward_extend / lf, which rank_probe.cu
     computes) at the table edges and seeded random rows, held to the host
-    index."""
+    index; shards > 1 asks them of a ShardedIndex."""
     import torch
     from centrifuger_tpu_torch.build import load_index
     from centrifuger_tpu_torch.fm import device as fd
+    from centrifuger_tpu_torch.parallel.sharded import ShardedIndex
     fm = load_index(prefix)[0]
-    dev_fm = fd.TorchFM.from_index(fm, "cuda", serve_layout, force_idtype)
+    dev_fm = ShardedIndex(fd.fm_arrays(fm), shards, force_idtype=force_idtype) \
+        if shards > 1 else fd.TorchFM.from_index(fm, "cuda", serve_layout, force_idtype)
     rng = np.random.default_rng(fm.n)
     fi = fm.first_isa
     rows = np.concatenate([
@@ -501,13 +563,13 @@ def probe_index(prefix, serve_layout, force_idtype=None, n_probe=4096):
 
 
 def run_path(name, label, prefix, reads_dir, extra, n_pairs, expect, log, paired=True,
-             force_idtype=None):
+             force_idtype=None, **make_kw):
     """One run of a path with the launch counts set to 0 just before and read
     just after: the reads through the CLI and, where `expect` names
     rank_probe, the index's public rank / extend / LF on the same index and
     layout (probe_index).  Fails if a kernel named in `expect` never
-    launched, or, with force_idtype int64, if any launch was not an int64
-    instantiation."""
+    launched, with force_idtype int64 if any launch was not an int64
+    instantiation, and with --shards if any was not a plain_sharded one."""
     import torch
     from centrifuger_tpu_torch import kernels
     gc.collect()    # the earlier runs' engines: their buffers are not this path's peak
@@ -515,8 +577,11 @@ def run_path(name, label, prefix, reads_dir, extra, n_pairs, expect, log, paired
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.time()
+    if force_idtype:
+        make_kw["force_idtype"] = force_idtype
     tsv, units = classify(prefix, reads_dir, extra + ["--batch-size", str(BATCH_PAIRS)], log,
-                          paired, force_idtype)
+                          paired, **make_kw)
+    shards = int(extra[extra.index("--shards") + 1]) if "--shards" in extra else 0
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
     if any(k.startswith("rank_probe") for k in expect):
@@ -525,7 +590,7 @@ def run_path(name, label, prefix, reads_dir, extra, n_pairs, expect, log, paired
         t1 = time.time()
         say("%s: %s: rank, BackwardExtend and LF of %d rows on the card (%s layout) equal "
             "the host index's (%.1f s, index load included)"
-            % ((label, name) + probe_index(prefix, layout, force_idtype)[::-1]
+            % ((label, name) + probe_index(prefix, layout, force_idtype, shards=shards)[::-1]
                + (time.time() - t1,)))
     launches = dict(kernels.LAUNCHES)
     say("%s: %s: %d %s in %.2f s through the CLI (index load included): %.0f %s/s; "
@@ -537,6 +602,9 @@ def run_path(name, label, prefix, reads_dir, extra, n_pairs, expect, log, paired
         fail("kernels never launched on the %s path: %s" % (name, missing))
     if force_idtype == "int64" and any(":i64" not in k for k in launches):
         fail("%s: a launch of the int64 path was not an :i64 instantiation: %s"
+             % (name, launches))
+    if shards > 1 and any(":plain_sharded" not in k for k in launches):
+        fail("%s: a launch of the sharded path was not a plain_sharded instantiation: %s"
              % (name, launches))
     return tsv, launches
 
@@ -557,10 +625,8 @@ def engine_rates(label, eng, bq, n_pairs, profile_name):
                 eng.query_batch(queries)
         torch.cuda.synchronize()
     fm = eng.dev
-    rank_tables = [t for t in (fm.rows, fm.mega) if t is not None] + \
-        [t for m in (fm.ind, fm.lit, fm.run) if m is not None for t in m.buffers()]
     say("%s: %s layout: rank tables %.1f MB of %.1f MB index buffers on the card"
-        % (label, fm.layout, nbytes(*rank_tables) / 1e6, nbytes(*fm.buffers()) / 1e6))
+        % ((label, fm.layout) + tuple(b / 1e6 for b in index_bytes(fm))))
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.time()
@@ -739,8 +805,9 @@ def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
     if "resolve_rows" in wanted:
         rows, valid = handed["resolve_rows"]
         say("%s: the finish stage hands resolve_rows %d rows" % (label, len(rows)))
-        rowmap = fm.rowmap
-        lib = cuda_ms(lambda: torch.index_select(rowmap, 0, rows), 20)
+        rowmap, whole = fm.rowmap, whole_rowmap(fm)
+        lib = cuda_ms(lambda: torch.index_select(whole, 0, rows), 20)
+        del whole
         rec.add(inst("resolve_rows"), replaces["resolve_rows"],
                 lambda: fd.resolve_rows(fm, rows, valid),
                 lambda: fd.resolve_rows_plain(fm, rows, valid), nbytes(rows, valid), lib)
@@ -857,11 +924,101 @@ def unfused_records(label, eng, queries, launches, replaces):
         fail("%s: prefix_search launched on the path but not on its first batch" % label)
     rows, valid = handed["resolve_rows"]
     say("%s: the engine hands resolve_rows %d rows" % (label, len(rows)))
-    lib = cuda_ms(lambda: torch.index_select(fm.rowmap, 0, rows), 20)
+    whole = whole_rowmap(fm)
+    lib = cuda_ms(lambda: torch.index_select(whole, 0, rows), 20)
+    del whole
     rec.add(kernels.instantiation("resolve_rows", fm), replaces["resolve_rows"],
             lambda: fd.resolve_rows(fm, rows, valid),
             lambda: fd.resolve_rows_plain(fm, rows, valid), nbytes(rows, valid), lib)
     return rec.recs
+
+
+def check_split_views(eng, queries):
+    """The sharded index's split of a batch over several cards, on one card:
+    with two views of cuda:0 standing for two cards, over_devices runs each
+    half of the units on its view and gathers the outputs, which must equal
+    the one-view program's."""
+    import torch
+    sh = eng.dev
+    want = eng._dispatch_fused(queries)["out"]
+    views, sh.views = sh.views, [sh, sh]
+    try:
+        got = eng._dispatch_fused(queries)["out"]
+    finally:
+        sh.views = views
+    torch.cuda.synchronize()
+    keys = ("packed", "hits", "nhits", "host_blob")
+    if any(not torch.equal(got[k], want[k]) for k in keys):
+        fail("path F: the batch split over two views of cuda:0 differs from one view's")
+    say("path F: a batch of %d pairs split over two views of cuda:0 (over_devices' split "
+        "and gather) equals the one-view program's %s" % (len(queries), "/".join(keys)))
+
+
+def phase_dp_step(eng, queries):
+    """K11: classify_dp_step on one batch's strand lanes (the non-fused
+    engine's code lanes: 4 a pair) over [cuda:0] and over [cuda:0, cuda:0],
+    with the launch counts set to 0 just before the two-part run and read
+    just after; both runs equal each other and the plain versions (the chain
+    and the start-row resolve twins), and total_hits the sum of nhits."""
+    import torch
+    from centrifuger_tpu_torch import kernels
+    from centrifuger_tpu_torch.fm import device as fd
+    from centrifuger_tpu_torch.parallel.mesh import classify_dp_step
+    fm = eng.dev
+    raws = [q[0] for q in queries] + [q[1] for q in queries if q[1] is not None]
+    codes, lengths = (torch.from_numpy(a).cuda() for a in eng._encode_lanes(raws))
+    mhl = eng.param.min_hit_len
+    H = codes.shape[1] // (mhl + 1) + 1
+    one = classify_dp_step(fm, ["cuda:0"], mhl, H)
+    two = classify_dp_step(fm, ["cuda:0", "cuda:0"], mhl, H)
+    kernels.reset_launches()
+    got = two(codes, lengths)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want_one = one(codes, lengths)
+    # an index on the host: the step keeps its own replica of it on the card
+    host = fd.TorchFM(fd.fm_arrays(eng.fm), "cpu")
+    moved = classify_dp_step(host, ["cuda:0"], mhl, H)(codes, lengths)
+    if host.device.type != "cpu" or any(
+            max_abs_err(moved[k], want_one[k]) for k in want_one):
+        fail("classify_dp_step: the replica of a host index on cuda:0 disagrees with "
+             "the index on the card, or moved the host index")
+    del host, moved
+
+    def plain():
+        hits, nh = fd.chain_search_lanes_plain(fm, codes, lengths, mhl, H)
+        has_hit = torch.arange(H, device="cuda")[None, :] < nh[:, None]
+        rows = torch.where(has_hit, hits[:, :, 0], torch.zeros_like(hits[:, :, 0]))
+        seqids = fd.resolve_rows_plain(fm, rows.reshape(-1), has_hit.reshape(-1))
+        return dict(nhits=nh, sp=hits[:, :, 0], ep=hits[:, :, 1], l=hits[:, :, 2],
+                    off=hits[:, :, 3], seqids=seqids.reshape(-1, H),
+                    total_hits=nh.sum(dtype=torch.int64))
+    rec = Records(fm, launches, "K11")
+    want, table_bytes, _ = rec.traffic(plain)
+    err = max(max(max_abs_err(got[k], want[k]), max_abs_err(got[k], want_one[k]))
+              for k in want)
+    if err or int(got["total_hits"]) != int(got["nhits"].sum()):
+        fail("classify_dp_step: the parts disagree with one part or the plain versions, "
+             "or total_hits is not the sum of nhits")
+    ms, ms_one = cuda_ms(lambda: two(codes, lengths), 20), cuda_ms(lambda: one(codes, lengths), 20)
+    outs = [v for v in got.values()]
+    bound_ms, bound_by = rec.bound(table_bytes, nbytes(codes, lengths) + nbytes(*outs))
+    n_launch = sum(launches.values())
+    r = dict(name="classify_dp_step", path="K11", route="cuda",
+             source="centrifuger_tpu_torch/parallel/mesh.py", replaces=
+             "centrifuger_tpu/parallel/mesh.py:31", kernels=sorted(launches),
+             launches=n_launch, max_abs_err=err, ms=ms, plain_ms=cuda_ms(plain, 3),
+             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    say("phase 6: classify_dp_step (K11) [%d lanes x %d codes, %d hits, total_hits %d]: "
+        "err 0 (a host index's replica on cuda:0 too)  two parts on cuda:0 %.4f ms (one "
+        "part %.4f ms)  plain %.4f ms  bound "
+        "%.4f ms (%s)  launches %s"
+        % (codes.shape[0], codes.shape[1], int(got["nhits"].sum()), int(got["total_hits"]),
+           ms, ms_one, r["plain_ms"], bound_ms, bound_by, launches))
+    if launches != {kernels.instantiation("chain_search", fm, ("lanes",)): 2,
+                    kernels.instantiation("resolve_rows", fm): 2}:
+        fail("classify_dp_step: want 2 chain and 2 resolve launches, got %s" % launches)
+    return r
 
 
 def phase_dep_gather(seed):
@@ -934,6 +1091,7 @@ def main():
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     log = open(os.path.join(OUT, "smoke_log.txt"), "w")
+    sys.stdout = tee = Tee(sys.stdout, os.path.join(OUT, "smoke_stdout.txt"))
     db_procs = {}
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1044,6 +1202,45 @@ def main():
         say("path E: long reads: %d of %d classified; -k 0: %d TSV lines for %d pairs"
             % (N_LONG - tsv["long"].count("\tunclassified\t"), N_LONG,
                tsv["k0"].count("\n") - 1, K0_PAIRS))
+
+        # path F: the main index served sharded (K10), no rebuild; one batch
+        # covers the first 8,192 pairs, the head of the main path's reads
+        t_f = time.time()
+        tsv["shards2"], launches["shards2"] = run_path(
+            "--shards 2", "path F", prefixes["main"], dirs["main"], ["--shards", "2"], N_PAIRS,
+            keys("plain_sharded", *fused), log)
+        tsv["shards4_lf"], launches["shards4_lf"] = run_path(
+            "--shards 4 --no-rowmap", "path F", prefixes["main"], dirs["k0"],
+            ["--shards", "4", "--no-rowmap"], K0_PAIRS,
+            keys("plain_sharded", "chain_search", "finalize_units"), log)
+        tsv["shards_i64"], launches["shards_i64"] = run_path(
+            "int64 --shards 2", "path F", prefixes["main"], dirs["k0"], ["--shards", "2"],
+            K0_PAIRS, keys("plain_sharded:i64", *fused), log, force_idtype="int64")
+        tsv["shards_jax"], launches["shards_jax"] = run_path(
+            "--engine jax --shards 2", "path F", prefixes["main"], dirs["k0"],
+            ["--engine", "jax", "--shards", "2"], K0_PAIRS,
+            ["chain_search:plain_sharded:lanes", "resolve_rows:plain_sharded"], log)
+        if tsv["shards2"] != tsv["main"]:
+            fail("the --shards 2 TSV differs from the main path's")
+        for k in ("shards4_lf", "shards_i64", "shards_jax"):
+            if not tsv["main"].startswith(tsv[k]) or tsv[k].count("\n") != K0_PAIRS + 1:
+                fail("path F: the %s TSV is not the head of the main path's" % k)
+        say("path F: --shards 2 TSV identical to the main path's; --shards 4 --no-rowmap, "
+            "int64 --shards 2 and --engine jax --shards 2 identical to its first %d pairs; "
+            "every launch a plain_sharded instantiation" % K0_PAIRS)
+        if torch.cuda.device_count() > 1:
+            tsv["shards_2cards"], _ = run_path(
+                "--shards 2 over cuda:0 and cuda:1", "path F", prefixes["main"], dirs["k0"],
+                ["--shards", "2"], K0_PAIRS, keys("plain_sharded", "chain_search"), log,
+                shard_devices=["cuda:0", "cuda:1"])
+            if not tsv["main"].startswith(tsv["shards_2cards"]):
+                fail("path F: the TSV over two cards is not the head of the main path's")
+            say("path F: --shards 2 over two cards (peer access) identical to the head of "
+                "the main path's TSV")
+        else:
+            say("path F: one CUDA device (torch.cuda.device_count() == 1): the run of "
+                "--shards 2 over two cards with peer access was not possible here")
+        say("path F: runs took %.1f s" % (time.time() - t_f))
         recs_k12 = phase_dep_gather(args.seed)
 
         # rates, device busy and idle share, kernel records: one engine a path.
@@ -1127,6 +1324,51 @@ def main():
         recs += unfused_records("phase 6 path E -k 0", make_engine(
             prefixes["main"], dev=eng.dev, param=ClassifierParam(max_result=0)), bq[0],
             launches["k0"], unfused_jax)
+        del eng
+
+        # path F: the plain_sharded instantiations (K10) at the path's shapes,
+        # each beside the unsharded kernel's time of this run; then K11
+        t_f = time.time()
+        # each sharded record's unsharded counterpart: the same kernel on the
+        # same shapes, on the path that runs it unsharded
+        twin_path = {"path F": "main", "path F int64": "path D",
+                     "path F --engine jax": "path E --engine jax"}
+        unsharded = {(r["path"], r["name"]): r["ms"] for r in recs}
+        jax_sh = "centrifuger_tpu/parallel/sharded.py:36 + "
+        sharded_jax = {
+            "chain_search": jax_sh + jax_fm + "852", "finalize_units": jax_sh + jax_de + "164",
+            "prefix_search": jax_sh + jax_fm + "1147", "resolve_rows": jax_sh + jax_fm + "707",
+            "rank_probe": jax_sh + jax_fm + "450"}
+        eng = make_engine(prefixes["main"], shards=2)
+        say("path F: per_shard_bytes %s, per_device_bytes %s, replicated_bytes %d"
+            % (eng.dev.per_shard_bytes(), eng.dev.per_device_bytes(),
+               eng.dev.replicated_bytes()))
+        engine_rates("path F", eng, bq, N_PAIRS, "profile_sharded.txt")
+        r, _ = phase_kernels("phase 6 path F", eng, bq, launches["shards2"], sharded_jax,
+                             ref_hits=ref_hits)
+        recs += r
+        check_split_views(eng, bq[0])
+        eng._finish_pool().shutdown()
+        recs += unfused_records("phase 6 path F --engine jax", make_engine(
+            prefixes["main"], dev=eng.dev, unfused=True), bq[0], launches["shards_jax"],
+            {k: sharded_jax[k] for k in ("chain_search", "prefix_search", "resolve_rows")})
+        del eng
+        eng = make_engine(prefixes["main"], force_idtype="int64", shards=2)
+        r, _ = phase_kernels("phase 6 path F int64", eng, bq, launches["shards_i64"],
+                             sharded_jax, ref_hits=ref_hits)
+        recs += r
+        eng._finish_pool().shutdown()
+        del eng
+        for r in recs:
+            base = (twin_path.get(r["path"]), r["name"].replace("plain_sharded", "plain"))
+            if base in unsharded:
+                say("path F: %-36s %.4f ms; %s on %s %.4f ms in this run: %.3fx"
+                    % (r["name"], r["ms"], base[1], base[0], unsharded[base],
+                       r["ms"] / unsharded[base]))
+        eng = make_engine(prefixes["main"])
+        recs.append(phase_dp_step(eng, bq[0]))
+        eng._finish_pool().shutdown()
+        say("phase 6 path F and K11 took %.1f s" % (time.time() - t_f))
         recs.append(recs_k12)
         del eng, bq, ref_hits
         torch.cuda.empty_cache()
@@ -1155,6 +1397,8 @@ def main():
                 proc.terminate()
             proc.join()
         log.close()
+        sys.stdout = tee.stream
+        tee.file.close()
         shutil.rmtree(WORK, ignore_errors=True)
 
 

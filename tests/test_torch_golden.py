@@ -140,7 +140,7 @@ def test_read_over_l_max(tmp_path_factory):
 
 
 @pytest.mark.parametrize("flag", [["--barcode-whitelist", "w.txt"],
-                                  ["--shards", "2"], ["--merge-readpair"],
+                                  ["--UMI", "u.fq"], ["--merge-readpair"],
                                   ["--read-format", "r1:0:-1"], ["--un", "x"],
                                   ["--barcode", "b.fq"], ["--sample-sheet", "s.tsv"]])
 def test_unported_flags_exit_naming_the_slice(tmp_path_factory, flag, capsys):

@@ -341,6 +341,116 @@ def test_kernels_int64_protein(protein_gpu):
     check_rank_probe(tfm, *(x.long() for x in probe_queries(fm, 4)))
 
 
+# ------------------------------------- the sharded index (K10) and K11
+
+def sharded(fm, D, idtype="int32", rowmap=True, devices=None):
+    from centrifuger_tpu_torch.parallel.sharded import ShardedIndex
+    fields = fd.fm_arrays(fm)
+    if not rowmap:
+        fields["rowmap"] = None
+    return ShardedIndex(fields, D, devices, force_idtype=idtype)
+
+
+@pytest.mark.parametrize("rowmap", [True, False])
+@pytest.mark.parametrize("idtype", ["int32", "int64"])
+def test_kernels_sharded(layouts_gpu, idtype, rowmap):
+    """Every plain_sharded instantiation against its twin (routed fetches)
+    and against the unsharded plain kernels, over 3 shards on one card."""
+    from centrifuger_tpu_torch import kernels
+    fm, fms, (pack2, vmask, lengths) = layouts_gpu
+    sh, ref = sharded(fm, 3, idtype, rowmap), fms["plain", rowmap]
+    kernels.reset_launches()
+    hits, nh = de.chain_search(sh, pack2, vmask, lengths, 23, 6)
+    want = de.chain_search_plain(sh, pack2, vmask, lengths, 23, 6)
+    assert torch.equal(hits, want[0]) and torch.equal(nh, want[1])
+    rhits, rnh = de.chain_search(ref, pack2, vmask, lengths, 23, 6)
+    assert torch.equal(hits, rhits.to(sh.idtype)) and torch.equal(nh, rnh)
+    for nr in (1, 2):
+        got = de.finalize_units(sh, hits, nh, nr, 23, 40, 8)
+        assert torch.equal(got, de.finalize_units_plain(sh, hits, nh, nr, 23, 40, 8))
+        assert torch.equal(got, de.finalize_units(ref, rhits, rnh, nr, 23, 40, 8))
+    rows = torch.from_numpy(np.random.default_rng(0).integers(0, sh.n, 4096)).cuda()
+    rows[:3] = torch.tensor([0, sh.n - 1, sh.first_isa])
+    valid = torch.rand(4096, device="cuda") < 0.8
+    got = fd.resolve_rows(sh, rows.to(sh.idtype), valid)
+    assert torch.equal(got, fd.resolve_rows_plain(sh, rows.to(sh.idtype), valid))
+    assert torch.equal(got, fd.resolve_rows(ref, rows.int(), valid).to(sh.idtype))
+    cf, _ = de.decode_packed_dna(pack2, vmask, lengths)
+    codes = cf.to(torch.uint8).contiguous()
+    ms = (lengths * torch.rand(len(lengths), device="cuda")).int()
+    got = fd.prefix_search(sh, codes, ms)
+    assert all(torch.equal(g, w) for g, w in zip(got, fd.prefix_search_plain(sh, codes, ms)))
+    check_rank_probe(sh, *(x.to(sh.idtype) for x in probe_queries(fm, 5)))
+    suffix = ":i64" if idtype == "int64" else ""
+    assert {k for k in kernels.LAUNCHES if "plain_sharded" in k} == {
+        k + ":plain_sharded" + suffix for k in
+        ("chain_search", "finalize_units", "resolve_rows", "prefix_search", "rank_probe")}
+    assert kernels.LAUNCHES["chain_search:plain_sharded" + suffix] == 1
+
+
+def test_fused_program_on_sharded_index(layouts_gpu):
+    """The fused program and the non-fused engine's chains on a sharded
+    index equal the unsharded ones; a shard count that leaves the last shard
+    mostly padding included."""
+    fm, fms, (pack2, vmask, lengths) = layouts_gpu
+    ref = fms["plain", True]
+    Q = len(lengths) // 2
+    want = de.fused_classify(ref, pack2, vmask, lengths, 2, 23, 6, 1, 40, 8, Q * 8)
+    for D in (2, 7):
+        got = de.fused_classify(sharded(fm, D), pack2, vmask, lengths, 2, 23, 6, 1, 40, 8,
+                                Q * 8)
+        for k in ("packed", "hits", "nhits", "host_blob"):
+            assert torch.equal(got[k], want[k]), (D, k)
+    # two views of the card stand for two cards: the units split into two
+    # runs on the card and the outputs are gathered there
+    sh = sharded(fm, 2)
+    sh.views = [sh, sh]
+    got = de.fused_classify(sh, pack2, vmask, lengths, 2, 23, 6, 1, 40, 8, Q * 8)
+    for k in ("packed", "hits", "nhits", "host_blob"):
+        assert torch.equal(got[k], want[k]), ("two views", k)
+
+
+def test_classify_dp_step_on_card(gpu):
+    from centrifuger_tpu_torch.parallel.mesh import classify_dp_step
+    tfm, pack2, vmask, lengths = gpu
+    cf, cr = de.decode_packed_dna(pack2, vmask, lengths)
+    codes = torch.cat([cf, cr]).to(torch.uint8).contiguous()
+    clen = torch.cat([lengths, lengths])
+    one = classify_dp_step(tfm, ["cuda:0"], 23, 6)(codes, clen)
+    two = classify_dp_step(tfm, ["cuda:0", "cuda:0"], 23, 6)(codes, clen)
+    # an index on the host: the step keeps a replica of it on the card
+    host = fd.TorchFM(fd.fm_arrays(_gpu_fm()), device="cpu")
+    moved = classify_dp_step(host, ["cuda:0"], 23, 6)(codes, clen)
+    assert host.device.type == "cpu"
+    for k in one:
+        assert torch.equal(one[k], two[k]) and torch.equal(one[k], moved[k]), k
+    hits, nh = fd.chain_search_lanes_plain(tfm, codes, clen, 23, 6)
+    has_hit = torch.arange(6, device="cuda")[None, :] < nh[:, None]
+    rows = torch.where(has_hit, hits[:, :, 0], torch.zeros_like(hits[:, :, 0]))
+    seqids = fd.resolve_rows_plain(tfm, rows.reshape(-1), has_hit.reshape(-1))
+    assert torch.equal(one["nhits"], nh) and torch.equal(one["sp"], hits[:, :, 0])
+    assert torch.equal(one["seqids"], seqids.reshape(-1, 6))
+    assert int(one["total_hits"]) == int(nh.sum()) > 0
+
+
+def test_sharded_over_two_cards():
+    """Shards round-robin over two cards with peer access: the same results
+    as one card's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    fm, genomes = synthetic_fm(n_genomes=3, genome_len=12000, seed=11)
+    reads = sample_reads(genomes, 512, 100, seed=3, err=0.01)
+    pack2, vmask, lengths = (torch.from_numpy(a).cuda() for a in pack_reads(reads, 128))
+    one = sharded(fm, 2)
+    two = sharded(fm, 2, devices=["cuda:0", "cuda:1"])
+    assert len(two.views) == 2 and two.views[1].device == torch.device("cuda", 1)
+    Q = len(lengths) // 2
+    want = de.fused_classify(one, pack2, vmask, lengths, 2, 23, 6, 1, 40, 8, Q * 8)
+    got = de.fused_classify(two, pack2, vmask, lengths, 2, 23, 6, 1, 40, 8, Q * 8)
+    for k in ("packed", "hits", "nhits", "host_blob"):
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_offset_rows_rank_int64(gpu):
     """The 40-bit occ on the card: offset rows rank O higher at pos >= 0, as
     their twin does."""
