@@ -403,6 +403,25 @@ class TorchFM(nn.Module):
         buf("rowmap", None if rowmap is None else
             np.asarray(rowmap).astype(np.int32))
 
+    def kernel_view(self):
+        """The index as the kernels see it (kernels.LaunchView: the FMView of
+        its buffers' addresses and scalars), built at its first launch and
+        kept until an attribute of this object is set or its buffers move."""
+        view = self.__dict__.get("_kernel_view")
+        if view is None:
+            view = self.__dict__["_kernel_view"] = kernels.LaunchView(self)
+        return view
+
+    def __setattr__(self, name, value):
+        # a buffer swapped (rowmap = None, offset rows, ...) would leave the
+        # view reading the old tensor's memory
+        self.__dict__.pop("_kernel_view", None)
+        super().__setattr__(name, value)
+
+    def _apply(self, fn, *args, **kwargs):
+        self.__dict__.pop("_kernel_view", None)
+        return super()._apply(fn, *args, **kwargs)
+
     def account(self, nbytes):
         """Add nbytes() (an int or a 0-d tensor) when accounting is on."""
         if self.traffic is not None:
@@ -419,7 +438,7 @@ class TorchFM(nn.Module):
 
     @property
     def device(self):
-        return self.psum.device
+        return self._buffers["psum"].device
 
     def over_devices(self, fn, rows_per_unit, *tensors):
         """fn(self, *tensors): the whole batch on this index's one device (a
@@ -916,7 +935,7 @@ def resolve_rows(fm, rows, valid):
     _check(fm, "resolve_rows", rows=(rows, fm.idtype), valid=(valid, torch.bool))
     if rows.shape != valid.shape or rows.dim() != 1:
         raise ValueError("rows and valid must be 1-D of one length")
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return resolve_rows_plain(fm, rows, valid)
     out = torch.empty_like(rows)
     if len(rows):
@@ -981,11 +1000,12 @@ def prefix_search(fm, codes, ms):
 def _check(fm, name, **tensors):
     """Wrapper argument checks: dtype, contiguity, and one device shared with
     the index buffers."""
+    device = fm.device
     for arg, (t, dtype) in tensors.items():
         if t.dtype != dtype:
             raise TypeError("%s: %s must be %s, got %s" % (name, arg, dtype, t.dtype))
         if not t.is_contiguous():
             raise ValueError("%s: %s must be contiguous" % (name, arg))
-        if t.device != fm.device:
+        if t.device != device:
             raise ValueError("%s: %s is on %s but the index is on %s"
-                             % (name, arg, t.device, fm.device))
+                             % (name, arg, t.device, device))

@@ -16,6 +16,13 @@ instantiation, "<kernel>:<rank layout>[:i64][:<variant>...]" (for example
 K10); callers reset it with reset_launches().  A launch runs with the
 index's device current, on that device's current stream.
 
+The launch path is host code on every kernel call, so it does no work that
+an index or a library already fixed: an index's FMView (about 45 fields from
+20 data pointers) and its launch-count names are built at its first launch
+and kept on it (TorchFM.kernel_view, dropped when an attribute of the index
+is set), and each entry point's ctypes prototype is set once, when its
+library loads.
+
 dep_gather (K12) is a microbenchmark of its own, with no FMView: it is
 launched through launch_raw.
 """
@@ -64,6 +71,8 @@ LAUNCHES = collections.Counter()
 BUILD_LOG = {}
 _LOCK = threading.Lock()
 _LIBS = {}
+_ENTRY_FNS = {}     # entry -> its prototyped ctypes function
+ROW_ALIGN = 16      # bytes: the group rank reads rows as 16-byte vectors
 
 
 def reset_launches():
@@ -122,8 +131,37 @@ def _lib(name):
     if lib is None:
         build_all()
         with _LOCK:
-            lib = _LIBS.setdefault(name, ctypes.CDLL(_lib_path(name)))
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = _LIBS[name] = _bind(ctypes.CDLL(_lib_path(name)), name)
     return lib
+
+
+def _bind(lib, name):
+    """Set the ctypes prototypes of the library `name`'s entry points and of
+    the helpers every library holds, once; returns lib."""
+    for entry, (src, sig) in ENTRIES.items():
+        if src != name:
+            continue
+        fn = getattr(lib, entry + "_launch")
+        fn.argtypes = ([] if entry == "dep_gather" else [ctypes.POINTER(FMView)]) + \
+            [ctypes.c_void_p if k == "P" else ctypes.c_int for k in sig] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ENTRY_FNS[entry] = fn
+    lib.cfr_error_string.argtypes = [ctypes.c_int]
+    lib.cfr_error_string.restype = ctypes.c_char_p
+    lib.cfr_enable_peer_access.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int)]
+    lib.cfr_enable_peer_access.restype = ctypes.c_int
+    return lib
+
+
+def _entry_fn(entry):
+    fn = _ENTRY_FNS.get(entry)
+    if fn is None:
+        _lib(ENTRIES[entry][0])
+        fn = _ENTRY_FNS[entry]
+    return fn
 
 
 class FMView(ctypes.Structure):
@@ -143,7 +181,16 @@ class FMView(ctypes.Structure):
                 + [(i, ctypes.c_int32) for i in _INTS] + _SHARDED)
 
 
+def _aligned(t, what):
+    if t is not None and t.data_ptr() % ROW_ALIGN:
+        raise ValueError("%s is not %d-byte aligned (data_ptr %% %d = %d): the kernels read "
+                         "wide rows as 16-byte vectors" % (what, ROW_ALIGN, ROW_ALIGN,
+                                                           t.data_ptr() % ROW_ALIGN))
+
+
 def _fm_view(fm):
+    """A new FMView of the index `fm`; raises where its wide rows (or a
+    shard of them) are not 16-byte aligned."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -162,7 +209,10 @@ def _fm_view(fm):
         b=fm.b, b_lt_n=int(fm.b_lt_n))
     if fm.layout == "plain_sharded":
         # the three big tables are read through their shard tables only
+        for s, t in enumerate(fm.shards["rows"]):
+            _aligned(t, "shard %d of the wide rows" % s)
         return FMView(**common, **fm.shard_fields())
+    _aligned(fm.rows, "the wide rows")
     return FMView(
         **common, rows=ptr(fm.rows), mega=ptr(fm.mega),
         ind_words=sub(fm.ind, "words"), ind_cum=sub(fm.ind, "cum"),
@@ -172,6 +222,20 @@ def _fm_view(fm):
         width=0 if fm.lit is None else fm.lit.width,
         lit_n=fm.lit_n, run_n=fm.run_n, m_lit=fm.m_lit, m_run=fm.m_run,
         has_rowmap=int(fm.rowmap is not None))
+
+
+class LaunchView:
+    """What a launch needs of an index, built once (TorchFM.kernel_view):
+    its FMView and a pointer to it, its device, and the launch-count names of
+    the (entry, variant) pairs launched on it so far."""
+
+    __slots__ = ("fm_view", "pointer", "device", "names")
+
+    def __init__(self, fm):
+        self.fm_view = _fm_view(fm)
+        self.pointer = ctypes.pointer(self.fm_view)
+        self.device = fm.device
+        self.names = {}
 
 
 def instantiation(kernel, fm, variant=()):
@@ -185,15 +249,20 @@ def launch(entry, fm, *args, variant=()):
     device with `args` in the order of ENTRIES[entry]; the kernel is the
     instantiation for the index's rank layout and index type.  `variant`
     names what else the wrapper's arguments select, for the launch count."""
-    _call(entry, args, fm.device, lambda: _fm_view(fm))
+    cargs = _c_args(entry, args)
+    view = fm.kernel_view()
+    _call(entry, view.device, [view.pointer] + cargs)
+    name = view.names.get((entry, variant))
+    if name is None:
+        name = view.names[entry, variant] = instantiation(ENTRIES[entry][0], fm, variant)
     with _LOCK:
-        LAUNCHES[instantiation(ENTRIES[entry][0], fm, variant)] += 1
+        LAUNCHES[name] += 1
 
 
 def launch_raw(entry, device, *args):
     """Launch a C entry point that takes no FMView (dep_gather), counted under
     the kernel's name."""
-    _call(entry, args, device, None)
+    _call(entry, device, _c_args(entry, args))
     with _LOCK:
         LAUNCHES[ENTRIES[entry][0]] += 1
 
@@ -203,11 +272,8 @@ def enable_peer_access(device, peer):
     `peer` (ints).  Raises where the pair has no peer access or enabling it
     fails; an access enabled before is no error."""
     lib = _lib(KERNELS[0])
-    fn = lib.cfr_enable_peer_access
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
     can = ctypes.c_int(0)
-    rc = fn(int(device), int(peer), ctypes.byref(can))
+    rc = lib.cfr_enable_peer_access(int(device), int(peer), ctypes.byref(can))
     if rc != 0:
         raise RuntimeError("enabling peer access from cuda:%d to cuda:%d failed: %s"
                            % (device, peer, _error_string(lib, rc)))
@@ -217,39 +283,43 @@ def enable_peer_access(device, peer):
 
 
 def _error_string(lib, rc):
-    err = lib.cfr_error_string
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return "CUDA error %d (%s)" % (rc, err(rc).decode())
+    return "CUDA error %d (%s)" % (rc, lib.cfr_error_string(rc).decode())
 
 
-def _call(entry, args, device, view):
-    """Check the arguments, then call `<entry>_launch` (with the FMView that
-    view() makes first, where view is given) with `device` current and raise
-    on a CUDA error."""
-    kernel, sig = ENTRIES[entry]
+def _stream(index):
+    """The raw cudaStream_t of CUDA device `index`'s current stream.  The
+    public torch.cuda.current_stream(device).cuda_stream builds a Stream
+    object on every call; this is the call it wraps."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _c_args(entry, args):
+    """`args` of `entry` as the C call takes them (a tensor's data pointer,
+    an int); raises on a wrong count or a tensor that is not on a card."""
+    sig = ENTRIES[entry][1]
     if len(args) != len(sig):
         raise TypeError("%s takes %d arguments, got %d" % (entry, len(sig), len(args)))
     cargs = []
     for kind, a in zip(sig, args):
         if kind == "P":
-            if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
+            if not isinstance(a, torch.Tensor) or not a.is_cuda:
                 raise ValueError("%s: a CPU tensor reached the kernel" % entry)
             cargs.append(a.data_ptr())
         else:
             cargs.append(int(a))
-    lead = () if view is None else (ctypes.byref(view()),)
-    lib = _lib(kernel)
-    fn = getattr(lib, entry + "_launch")
-    fn.argtypes = ([ctypes.POINTER(FMView)] * len(lead)
-                   + [ctypes.c_void_p if k == "P" else ctypes.c_int for k in sig]
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index is None or device.index == torch.cuda.current_device():
-        rc = fn(*lead, *cargs, stream)
+    return cargs
+
+
+def _call(entry, device, cargs):
+    """Call `<entry>_launch` with cargs and the stream, `device` current, and
+    raise on a CUDA error."""
+    fn = _entry_fn(entry)
+    index, current = device.index, torch._C._cuda_getDevice()
+    if index is None or index == current:
+        rc = fn(*cargs, _stream(current))
     else:   # an index on another card (a sharded index's view): its context
         with torch.cuda.device(device):
-            rc = fn(*lead, *cargs, stream)
+            rc = fn(*cargs, _stream(index))
     if rc != 0:
-        raise RuntimeError("%s launch failed: %s" % (entry, _error_string(lib, rc)))
+        raise RuntimeError("%s launch failed: %s"
+                           % (entry, _error_string(_lib(ENTRIES[entry][0]), rc)))

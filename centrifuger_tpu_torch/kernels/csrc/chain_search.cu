@@ -11,13 +11,30 @@
 // from the codes into a 64-bit key, clipped to the table, so it has no pack
 // limit and serves both.
 //
-// Bound: every EXTEND step is two dependent rank fetches at random rows (one
-// 128-byte line each on the plain layout, three 84-byte rows on the
-// run-block layout, up to five fetches on the generic one), so the kernel is
-// latency- and bytes-bound, not compute-bound.  Design: one thread per lane
-// runs its START/EXTEND state machine to completion with no lockstep.  The
-// kernel is a template over the rank layout (with its index type) and the
-// code source:
+// Bound on this card.  A lane is a chain of dependent EXTEND steps (about 80
+// for a 100-code lane, 19,000 for a 20 kbp read), each two ranks at random
+// rows: one 512-byte wide row each on the plain layouts, three 84-byte rows
+// on the run-block layout, up to five fetches on the generic one.  The bytes
+// a batch moves bound it at about 0.26 ms (plain, 32,768 lanes); a step's
+// memory latency (L2 or HBM, hundreds of cycles), paid once a step for as
+// many steps as the longest lane has, bounds it from the other side.  When
+// one thread scanned each rank's row word by word, a step cost about as many
+// memory rounds as the row has words, and that set the time whatever the
+// lane count.
+//
+// Design.  A lane runs its START/EXTEND state machine to completion, with no
+// lockstep, on Lanes<Layout> threads (fm_device.cuh).  On the plain layouts
+// (whole and sharded, int32 and int64) that is a whole warp: all 32 threads
+// run the same state, and each EXTEND step issues the sp row's and the ep
+// row's 16-byte loads together (one a thread a row), counts its own 4 words
+// and sums them with one warp reduction (group_rank, rank_plain.cuh): one
+// memory round a step, and the ep row is not counted where sp == ep.  A warp
+// a lane also keeps lanes whose chains differ from sharing a warp, whose
+// diverged groups would issue one after another: of 4, 8, 16 and 32 threads
+// a lane, 32 ran the main batch and the long reads fastest (PERF.md, "Group
+// size").  Blocks of 128 threads hold 4 lanes.  The warp's thread 0 writes
+// the hits.  On the run-block and generic layouts one thread runs a lane, as
+// the layouts' ranks are written.  The code source is a template parameter:
 //   PackedDna  lane 2u reads read u forward, lane 2u + 1 its reverse
 //              complement as 3 - code[len - 1 - i], straight from pack2/vmask
 //   CodeLanes  ready-made uint8 code lanes (protein: six frames a read; the
@@ -55,13 +72,18 @@ struct PackedDna {
   }
 };
 
+constexpr int CHAIN_THREADS = 128;   // a multiple of the warp: groups never straddle warps
+
 template <class Layout, class Reads>
-__global__ void chain_search_kernel(FMView f, Reads reads, int B, int mhl, int H,
-                                    typename Layout::Idx* __restrict__ hits,
-                                    int32_t* __restrict__ nhits) {
+__global__ void __launch_bounds__(CHAIN_THREADS)
+    chain_search_kernel(FMView f, Reads reads, int B, int mhl, int H,
+                        typename Layout::Idx* __restrict__ hits, int32_t* __restrict__ nhits) {
   using Idx = typename Layout::Idx;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  using L = Lanes<Layout>;
+  const int b = static_cast<int>((blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) /
+                                 L::G);
+  if (b >= B) return;   // the whole group: b is the group's
+  const typename L::Group g = L::Group::here();
   const typename Reads::Lane rd = reads.lane(b);
   const int64_t out = static_cast<int64_t>(b) * H;   // this lane's first hit
   const int32_t pw = f.pw;
@@ -93,7 +115,7 @@ __global__ void chain_search_kernel(FMView f, Reads reads, int B, int mhl, int H
       while (true) {
         const int32_t c = rd.code(rem - l - 1);
         Idx nsp = 1, nep = 0;
-        if (c != 255) Layout::backward_extend(f, c, sp, ep, &nsp, &nep);
+        if (c != 255) L::backward_extend(f, g, c, sp, ep, &nsp, &nep);
         if (c == 255 || nsp > nep) {   // failed: the chain is [sp, ep] at l
           fin_l = l;
           fin_sp = sp;
@@ -112,22 +134,24 @@ __global__ void chain_search_kernel(FMView f, Reads reads, int B, int mhl, int H
       }
     }
     // hits beyond H are dropped, but the lane keeps walking
-    if (fin_l >= mhl && fin_sp <= fin_ep && nh < H)
-      store_hit<Idx>(hits, out + nh++, fin_sp, fin_ep, fin_l, length - rem);
+    if (fin_l >= mhl && fin_sp <= fin_ep && nh < H) {
+      if (g.t == 0) store_hit<Idx>(hits, out + nh, fin_sp, fin_ep, fin_l, length - rem);
+      ++nh;
+    }
     rem -= fin_l + 1;
   }
-  for (int m = nh; m < H; ++m) store_hit<Idx>(hits, out + m, 0, 0, 0, 0);
-  nhits[b] = nh;
+  for (int m = nh + g.t; m < H; m += L::G) store_hit<Idx>(hits, out + m, 0, 0, 0, 0);
+  if (g.t == 0) nhits[b] = nh;
 }
 
 template <class Reads>
 int launch(const FMView* f, const Reads& reads, int B, int mhl, int H, void* hits,
            int32_t* nhits, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  CFR_DISPATCH_LAYOUT(f, chain_search_kernel<Layout, Reads><<<blocks, threads, 0, stream>>>(
-                             *f, reads, B, mhl, H, static_cast<typename Layout::Idx*>(hits),
-                             nhits));
+  CFR_DISPATCH_LAYOUT(
+      f, const int64_t threads = static_cast<int64_t>(B) * Lanes<Layout>::G;
+      chain_search_kernel<Layout, Reads>
+      <<<static_cast<unsigned>((threads + CHAIN_THREADS - 1) / CHAIN_THREADS), CHAIN_THREADS, 0,
+         stream>>>(*f, reads, B, mhl, H, static_cast<typename Layout::Idx*>(hits), nhits));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,20 +28,15 @@
 #include "rank_plain.cuh"
 #include "rank_runblock.cuh"
 
-// BackwardExtend from a layout's rank_sym, with the displaced-last-char
-// corrections; the sp == ep shortcut reads the symbol of the same row fetch.
-template <class Layout>
-__device__ __forceinline__ void extend_by_rank_sym(const FMView& f, int32_t c,
-                                                   typename Layout::Idx sp,
-                                                   typename Layout::Idx ep,
-                                                   typename Layout::Idx* nsp,
-                                                   typename Layout::Idx* nep) {
-  using Idx = typename Layout::Idx;
+// BackwardExtend's result from the two ranks (sp - 1 and ep) and the symbol
+// at ep, with the displaced-last-char corrections; the sp == ep shortcut
+// reads the symbol of the same row fetch.
+template <class Idx>
+__device__ __forceinline__ void extend_from_ranks(const FMView& f, int32_t c, Idx sp, Idx ep,
+                                                  Idx r_sp, Idx r_ep, int32_t sym_ep, Idx* nsp,
+                                                  Idx* nep) {
   const Idx off = tab<Idx>(f.psum, c);
   const Idx fi = static_cast<Idx>(f.first_isa);
-  int32_t sym_ep;
-  const Idx r_sp = Layout::rank_sym(f, c, sp - 1, nullptr);
-  const Idx r_ep = Layout::rank_sym(f, c, ep, &sym_ep);
   const bool last = c == f.last_chr;
   const Idx s = off + r_sp + ((last && sp <= fi) ? 1 : 0);
   *nsp = s;
@@ -49,6 +44,20 @@ __device__ __forceinline__ void extend_by_rank_sym(const FMView& f, int32_t c,
     *nep = s + (sym_ep == c ? 0 : -1);
   else
     *nep = off + r_ep + ((last && ep < fi) ? 1 : 0) - 1;
+}
+
+// BackwardExtend from a layout's rank_sym.
+template <class Layout>
+__device__ __forceinline__ void extend_by_rank_sym(const FMView& f, int32_t c,
+                                                   typename Layout::Idx sp,
+                                                   typename Layout::Idx ep,
+                                                   typename Layout::Idx* nsp,
+                                                   typename Layout::Idx* nep) {
+  using Idx = typename Layout::Idx;
+  int32_t sym_ep;
+  const Idx r_sp = Layout::rank_sym(f, c, sp - 1, nullptr);
+  const Idx r_ep = Layout::rank_sym(f, c, ep, &sym_ep);
+  extend_from_ranks<Idx>(f, c, sp, ep, r_sp, r_ep, sym_ep, nsp, nep);
 }
 
 // The rowmap and the sampled SA read from the whole tables: the table access
@@ -201,15 +210,80 @@ __device__ __forceinline__ int32_t sel_find(const FMView& f, Idx row) {
   return (lo < f.n_sel && tab<Idx>(f.sel_rows, lo) == row) ? lo : -1;
 }
 
-// SA row -> stored value (BackwardToSampledSA): one rowmap load, or the LF
-// walk to a first-ISA, sampled, selected or (where the index has no selected
-// rows) end-marker row, then that row's value.
+// ---------------------------------------------------------- lane groups
+// How a kernel that runs each lane to completion spreads a lane over
+// threads.  Lanes<Layout> is GroupLanes on the two plain layouts (a warp
+// shares each row fetch: RankGroup, rank_plain.cuh) and
+// SoloLanes, one thread with the layout's own code, on the others.
+// chain_search and resolve_rows's LF walk run on Lanes<Layout>; the other
+// kernels call the layouts directly, one thread a lane.
+
+struct Solo {
+  int t;   // always 0: the thread is its lane's leader
+  static __device__ __forceinline__ Solo here() { return Solo{0}; }
+};
+
 template <class Layout>
-__device__ __forceinline__ typename Layout::Idx resolve_one(const FMView& f,
-                                                            typename Layout::Idx row) {
+struct SoloLanes {
   using Idx = typename Layout::Idx;
-  if (Layout::has_rowmap(f))
-    return Layout::rowmap_at(f, tmin(tmax(row, Idx(0)), static_cast<Idx>(f.n - 1)));
+  using Group = Solo;
+  static constexpr int G = 1;
+  static __device__ __forceinline__ void backward_extend(const FMView& f, const Solo&, int32_t c,
+                                                         Idx sp, Idx ep, Idx* nsp, Idx* nep) {
+    Layout::backward_extend(f, c, sp, ep, nsp, nep);
+  }
+  static __device__ __forceinline__ Idx lf(const FMView& f, const Solo&, Idx p) {
+    return Layout::lf(f, p);
+  }
+};
+
+template <class Idx_, class Rows>
+struct GroupLanes {
+  using Idx = Idx_;
+  using Group = RankGroup;
+  static constexpr int G = 32;   // a warp
+  // both rows' loads are issued before either rank is summed: one memory
+  // round a step
+  static __device__ __forceinline__ void backward_extend(const FMView& f, const Group& g,
+                                                         int32_t c, Idx sp, Idx ep, Idx* nsp,
+                                                         Idx* nep) {
+    const Idx p0 = sp - 1;
+    const int32_t u0 = wide_upto(p0), u1 = wide_upto(ep);
+    const RowSlice s0 = load_slice(Rows::row(f, p0), g.t, u0);
+    const RowSlice s1 = load_slice(Rows::row(f, ep), g.t, u1);
+    const Idx r_sp = group_rank<Idx>(g, s0, c, p0, u0);
+    // sp == ep (most steps once a chain is unique) needs only the symbol at
+    // ep: extend_from_ranks' shortcut
+    const Idx r_ep = sp == ep ? Idx(0) : group_rank<Idx>(g, s1, c, ep, u1);
+    extend_from_ranks<Idx>(f, c, sp, ep, r_sp, r_ep, group_sym(s1, ep, u1), nsp, nep);
+  }
+  static __device__ __forceinline__ Idx lf(const FMView& f, const Group& g, Idx p) {
+    return group_lf<Idx, Rows>(f, g, p);
+  }
+};
+
+template <class Layout>
+struct LanesOf {
+  using type = SoloLanes<Layout>;
+};
+template <class Idx>
+struct LanesOf<PlainLayout<Idx>> {
+  using type = GroupLanes<Idx, WholeRows>;
+};
+template <class Idx>
+struct LanesOf<ShardedPlainLayout<Idx>> {
+  using type = GroupLanes<Idx, ShardedRows>;
+};
+template <class Layout>
+using Lanes = typename LanesOf<Layout>::type;
+
+// The LF walk of BackwardToSampledSA: from `row` to a first-ISA, sampled,
+// selected or (where the index has no selected rows) end-marker row, then
+// that row's value.  lf(p) is one LF step (a thread's or a group's).
+template <class Layout, class Lf>
+__device__ __forceinline__ typename Layout::Idx lf_walk(const FMView& f, typename Layout::Idx row,
+                                                        Lf lf) {
+  using Idx = typename Layout::Idx;
   const Idx fi = static_cast<Idx>(f.first_isa);
   Idx cur = row;
   while (true) {
@@ -221,8 +295,26 @@ __device__ __forceinline__ typename Layout::Idx resolve_one(const FMView& f,
     } else if (cur < f.n_end) {
       return tab<Idx>(f.end_marker_sa, cur);
     }
-    cur = Layout::lf(f, cur);
+    cur = lf(cur);
   }
+}
+
+// The rowmap entry of `row` (the index has a rowmap), row clamped to [0, n).
+template <class Layout>
+__device__ __forceinline__ typename Layout::Idx rowmap_value(const FMView& f,
+                                                             typename Layout::Idx row) {
+  using Idx = typename Layout::Idx;
+  return Layout::rowmap_at(f, tmin(tmax(row, Idx(0)), static_cast<Idx>(f.n - 1)));
+}
+
+// SA row -> stored value (BackwardToSampledSA), one thread: one rowmap load,
+// or the LF walk.
+template <class Layout>
+__device__ __forceinline__ typename Layout::Idx resolve_one(const FMView& f,
+                                                            typename Layout::Idx row) {
+  using Idx = typename Layout::Idx;
+  if (Layout::has_rowmap(f)) return rowmap_value<Layout>(f, row);
+  return lf_walk<Layout>(f, row, [&](Idx p) { return Layout::lf(f, p); });
 }
 
 // The pw-mer that ends at position `end - 1` of a code sequence, read back to

@@ -84,12 +84,10 @@ class _ShardView(TorchFM):
         self.shards, self.rps = shards, rps
         for k in SHARDED:
             setattr(self, k, _PoisonTable() if k in shards else None)
-        self.ptrs = None
-        if device.type == "cuda":
-            D = len(shards["rows"])
-            self.ptrs = torch.tensor(
-                [[t.data_ptr() for t in shards[k]] if k in shards else [0] * D
-                 for k in SHARDED], dtype=torch.int64, device=device)
+        D = len(shards["rows"])
+        self.ptrs = torch.tensor(
+            [[t.data_ptr() for t in shards[k]] if k in shards else [0] * D
+             for k in SHARDED], dtype=torch.int64, device=device)
 
     # the rank layout is the plain one, with routed row fetches
     def rank_sym(self, c, pos):
@@ -114,9 +112,6 @@ class _ShardView(TorchFM):
 
     def shard_fields(self):
         """The FMView fields of the sharded layout (kernels._fm_view)."""
-        if self.ptrs is None:
-            raise ValueError("a sharded index on %s has no shard-address table"
-                             % self.device)
         base, row = self.ptrs.data_ptr(), self.ptrs.stride(0) * 8
         has_rowmap = self.rowmap is not None    # None where the caller turned it off
         return dict(rows_shards=base, rowmap_shards=base + row if has_rowmap else None,

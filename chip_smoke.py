@@ -67,13 +67,19 @@ Phases (any failure exits non-zero and prints no result):
      to the host index.
      Each path: the launch counts of its own run, pairs/s through the CLI, the
      steady-state engine rate, the device's busy time and idle share in one
-     profiled pass, peak device memory, and the head of its TSV against a
+     profiled pass ("not measured" where the profiler did not keep every
+     launch of the port's kernels that the wrappers counted), peak device
+     memory, and the head of its TSV against a
      --device cpu run (the plain twins).
   6. each kernel the paths launched against its plain twin on the same CUDA
-     tensors at the path's shapes, with CUDA-event timings: chain_search and
+     tensors at the path's shapes, timed by CUDA events around the wrapper
+     call (the host's enqueue included) and by device time (events behind a
+     spin kernel that hides the enqueue; a PyTorch call that computes the
+     same function, where there is one, both ways too): chain_search and
      finalize_units on one batch of 8,192 pairs, prefix_search and
      resolve_rows on the very tensors the host finish stage hands them for a
-     batch, rank_probe (one rank, one extend, one LF of each layout) at the
+     batch (resolve_rows with the rowmap and, with its LF-walk step count,
+     without), rank_probe (one rank, one extend, one LF of each layout) at the
      batch's lane count, and one rank of 2^20 random rows per layout; the
      int64 instantiations of path D the same way; for each run of path E
      (--engine jax, the long reads, -k 0) chain_search_lanes, prefix_search
@@ -92,6 +98,7 @@ of the standard output (smoke_stdout.txt).
 """
 
 import argparse
+import collections
 import contextlib
 import functools
 import gc
@@ -477,6 +484,49 @@ def cuda_ms(fn, reps):
     return float(np.median(ts))
 
 
+SPIN_CYCLES = 2_000_000   # about 1 ms of the card's clock: more than a call's host enqueue
+
+
+def device_ms(fn, reps):
+    """Median device milliseconds of one fn() call: CUDA events recorded
+    around fn() while the card is still busy with a spin kernel queued just
+    before (torch.cuda._sleep), so that the call's work is queued whole before
+    the first event is reached and the events time the device's work only,
+    not the host's enqueue that cuda_ms includes.  fn must not synchronise
+    with the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return float(np.median(ts))
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else "%.4f ms" % ms
+
+
+def lf_steps(fm, rows, valid):
+    """LF steps the LF-walk resolve of `rows` takes in all (the plain twin's
+    walk: a row steps until it reaches a stored row)."""
+    cur, pend, steps = rows.long().clone(), valid.clone(), 0
+    while True:
+        pend &= ~fm.stored_here(cur)
+        idx = pend.nonzero()[:, 0]
+        if not len(idx):
+            return steps
+        steps += len(idx)
+        cur[idx] = fm.lf(cur[idx])
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -615,6 +665,7 @@ def engine_rates(label, eng, bq, n_pairs, profile_name):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
+    from centrifuger_tpu_torch import kernels
 
     def one_pass():
         if hasattr(eng, "query_pipelined_packed"):
@@ -632,20 +683,41 @@ def engine_rates(label, eng, bq, n_pairs, profile_name):
         t0 = time.time()
         one_pass()
         rate = n_pairs / (time.time() - t0)
+    before = collections.Counter(kernels.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # past a process's first profiled pass the profiler can miss the
+        # pass's first launches: a spin kernel and a pause go first (the spin
+        # is left out of the busy time), and the count check below says
+        # where the profiler still missed some
+        torch.cuda._sleep(SPIN_CYCLES // 10)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
         t0 = time.time()
         one_pass()
         wall_ms = (time.time() - t0) * 1e3
     ka = prof.key_averages()
     # kernels and copies only: an aten op's own device time repeats theirs
     busy_ms = sum(k.self_device_time_total for k in ka
-                  if k.device_type == DeviceType.CUDA) / 1e3
+                  if k.device_type == DeviceType.CUDA and "spin_kernel" not in k.key) / 1e3
     with open(os.path.join(OUT, profile_name), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=30))
+    # the busy time holds only if the profiler kept every launch of the
+    # port's kernels that the wrappers counted in the pass
+    launched, kept = collections.Counter(), collections.Counter()
+    for name, n in (kernels.LAUNCHES - before).items():
+        launched[name.split(":")[0]] += n
+    for k in ka:
+        m = re.search(r"::(\w+)_kernel<", k.key)
+        if k.device_type == DeviceType.CUDA and m:
+            kept[m.group(1)] += k.count
+    lost = ["%s %d of %d" % (name, kept[name], n)
+            for name, n in sorted(launched.items()) if kept[name] != n]
+    busy = ("device busy %.2f ms, idle share %.4f" % (busy_ms, 1 - busy_ms / wall_ms)
+            if not lost else "device busy and idle share not measured (the profiler "
+            "kept %s launches)" % ", ".join(lost))
     say("%s: steady-state engine rate (reads parsed beforehand, TSV formatted): %.0f "
-        "read pairs/s; profiled pass: wall %.1f ms, device busy %.2f ms, idle share "
-        "%.4f (table in chiprun_out/%s)"
-        % (label, rate, wall_ms, busy_ms, 1 - busy_ms / wall_ms, profile_name))
+        "read pairs/s; profiled pass: wall %.1f ms, %s (table in chiprun_out/%s)"
+        % (label, rate, wall_ms, busy, profile_name))
 
 
 def check_cpu_head(label, kind, prefix, reads_dir, tsv, extra, log, paired=True):
@@ -689,11 +761,16 @@ class Records:
         t, self.fm.traffic = self.fm.traffic, None
         return out, t, s.elapsed_time(e)
 
-    def add(self, name, replaces, kernel, plain, io_bytes, library_ms=None,
+    def add(self, name, replaces, kernel, plain, io_bytes, library=None,
             same=None, reps=20, plain_reps=3):
         """Hold kernel() to plain() (tuples of tensors), time both, and record
-        them under the launch count `name`.  plain_reps=0 times the plain
-        version's one comparison call (for a twin that takes minutes)."""
+        them under the launch count `name`, with the kernel's device time and,
+        where `library` (one PyTorch call of the same function) is given, its
+        event and device times.  plain_reps=0 times the plain version's one
+        comparison call (for a twin that takes minutes)."""
+        library_ms = library_device_ms = None
+        if library is not None:
+            library_ms, library_device_ms = cuda_ms(library, 20), device_ms(library, 20)
         got = kernel()
         want, table_bytes, plain_once = self.traffic(plain)
         got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
@@ -701,17 +778,19 @@ class Records:
         if same is not None:
             err = max(err, max(max_abs_err(g, w) for g, w in zip(got, same)))
         ms = cuda_ms(kernel, reps)
+        dev_ms = device_ms(kernel, min(reps, 5))
         plain_ms = cuda_ms(plain, plain_reps) if plain_reps else plain_once
         bound_ms, bound_by = self.bound(table_bytes, io_bytes + nbytes(*got))
         self.recs.append(dict(
             name=name, path=self.path, route="cuda", source=CSRC % name.split(":")[0],
             replaces=replaces, launches=self.launches.get(name, 0), max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms))
-        say("phase 6: %-32s err %d  kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)%s"
-            "  launches %d"
-            % (name, err, ms, plain_ms, bound_ms, bound_by,
-               "" if library_ms is None else "  library %.4f ms" % library_ms,
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, library_device_ms=library_device_ms))
+        say("phase 6: %-32s err %d  kernel %.4f ms (device %s)  plain %.4f ms  bound %.4f ms "
+            "(%s)%s  launches %d"
+            % (name, err, ms, ms_text(dev_ms), plain_ms, bound_ms, bound_by,
+               "" if library_ms is None else "  library %.4f ms (device %s)"
+               % (library_ms, ms_text(library_device_ms)),
                self.launches.get(name, 0)))
         if err or not self.launches.get(name):
             fail("%s: disagrees with its plain twin, or never launched on its path"
@@ -806,22 +885,27 @@ def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
         rows, valid = handed["resolve_rows"]
         say("%s: the finish stage hands resolve_rows %d rows" % (label, len(rows)))
         rowmap, whole = fm.rowmap, whole_rowmap(fm)
-        lib = cuda_ms(lambda: torch.index_select(whole, 0, rows), 20)
-        del whole
         rec.add(inst("resolve_rows"), replaces["resolve_rows"],
                 lambda: fd.resolve_rows(fm, rows, valid),
-                lambda: fd.resolve_rows_plain(fm, rows, valid), nbytes(rows, valid), lib)
+                lambda: fd.resolve_rows_plain(fm, rows, valid), nbytes(rows, valid),
+                lambda: torch.index_select(whole, 0, rows))
+        del whole
         fm.rowmap = None
         try:
             got = fd.resolve_rows(fm, rows, valid)
             want, tr, _ = rec.traffic(lambda: fd.resolve_rows_plain(fm, rows, valid))
             if max_abs_err(got, want):
                 fail("%s: resolve_rows (LF walk) disagrees with its plain twin" % label)
-            say("%s: resolve_rows LF-walk branch: err 0  kernel %.4f ms  plain %.4f ms  "
-                "bound %.4f ms (%s)"
-                % ((label, cuda_ms(lambda: fd.resolve_rows(fm, rows, valid), 20),
+
+            def walk():
+                return fd.resolve_rows(fm, rows, valid)
+            say("%s: resolve_rows LF-walk branch: err 0  kernel %.4f ms (device %s)  "
+                "plain %.4f ms  bound %.4f ms (%s)  %d LF steps over the %d rows"
+                % ((label, cuda_ms(walk, 20),
+                    ms_text(device_ms(walk, 5)),
                     cuda_ms(lambda: fd.resolve_rows_plain(fm, rows, valid), 3))
-                   + rec.bound(tr, nbytes(rows, valid, got))))
+                   + rec.bound(tr, nbytes(rows, valid, got)) + (lf_steps(fm, rows, valid),
+                                                                 len(rows))))
         finally:
             fm.rowmap = rowmap
 
@@ -925,11 +1009,11 @@ def unfused_records(label, eng, queries, launches, replaces):
     rows, valid = handed["resolve_rows"]
     say("%s: the engine hands resolve_rows %d rows" % (label, len(rows)))
     whole = whole_rowmap(fm)
-    lib = cuda_ms(lambda: torch.index_select(whole, 0, rows), 20)
-    del whole
     rec.add(kernels.instantiation("resolve_rows", fm), replaces["resolve_rows"],
             lambda: fd.resolve_rows(fm, rows, valid),
-            lambda: fd.resolve_rows_plain(fm, rows, valid), nbytes(rows, valid), lib)
+            lambda: fd.resolve_rows_plain(fm, rows, valid), nbytes(rows, valid),
+            lambda: torch.index_select(whole, 0, rows))
+    del whole
     return rec.recs
 
 
@@ -1001,20 +1085,21 @@ def phase_dp_step(eng, queries):
         fail("classify_dp_step: the parts disagree with one part or the plain versions, "
              "or total_hits is not the sum of nhits")
     ms, ms_one = cuda_ms(lambda: two(codes, lengths), 20), cuda_ms(lambda: one(codes, lengths), 20)
+    dev_ms = device_ms(lambda: two(codes, lengths), 5)
     outs = [v for v in got.values()]
     bound_ms, bound_by = rec.bound(table_bytes, nbytes(codes, lengths) + nbytes(*outs))
     n_launch = sum(launches.values())
     r = dict(name="classify_dp_step", path="K11", route="cuda",
              source="centrifuger_tpu_torch/parallel/mesh.py", replaces=
              "centrifuger_tpu/parallel/mesh.py:31", kernels=sorted(launches),
-             launches=n_launch, max_abs_err=err, ms=ms, plain_ms=cuda_ms(plain, 3),
-             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+             launches=n_launch, max_abs_err=err, ms=ms, device_ms=dev_ms,
+             plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=None, library_device_ms=None)
     say("phase 6: classify_dp_step (K11) [%d lanes x %d codes, %d hits, total_hits %d]: "
-        "err 0 (a host index's replica on cuda:0 too)  two parts on cuda:0 %.4f ms (one "
-        "part %.4f ms)  plain %.4f ms  bound "
-        "%.4f ms (%s)  launches %s"
+        "err 0 (a host index's replica on cuda:0 too)  two parts on cuda:0 %.4f ms (device "
+        "%s; one part %.4f ms)  plain %.4f ms  bound %.4f ms (%s)  launches %s"
         % (codes.shape[0], codes.shape[1], int(got["nhits"].sum()), int(got["total_hits"]),
-           ms, ms_one, r["plain_ms"], bound_ms, bound_by, launches))
+           ms, ms_text(dev_ms), ms_one, r["plain_ms"], bound_ms, bound_by, launches))
     if launches != {kernels.instantiation("chain_search", fm, ("lanes",)): 2,
                     kernels.instantiation("resolve_rows", fm): 2}:
         fail("classify_dp_step: want 2 chain and 2 resolve launches, got %s" % launches)
@@ -1048,15 +1133,18 @@ def phase_dep_gather(seed):
     t_bytes, t_ops = io_bytes / HBM_BYTES_PER_MS, ops / OPS_PER_MS
     rec = dict(name="dep_gather", path="K12", route="cuda", source=CSRC % "dep_gather",
                replaces="tools/micro_gather.py:110", launches=launches, max_abs_err=err,
-               ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3),
-               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
-               else "operations", library_ms=None)
+               ms=cuda_ms(kernel, 20), device_ms=device_ms(kernel, 5),
+               plain_ms=cuda_ms(plain, 3), bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+               library_device_ms=None)
     if err:
         fail("dep_gather disagrees with its plain twin")
     say("path K12: dep_gather [%d lanes x %d dependent fetches, table %d x %d u32, %.2f MB, "
-        "L2-resident]: err 0  kernel %.4f ms  plain %.4f ms  bound %.6f ms (%s)  launches %d"
+        "L2-resident]: err 0  kernel %.4f ms (device %s)  plain %.4f ms  bound %.6f ms (%s)  "
+        "launches %d"
         % (idx.numel(), mg.NITER, table.shape[0], table.shape[1], nbytes(table) / 1e6,
-           rec["ms"], rec["plain_ms"], rec["bound_ms"], rec["bound_by"], launches))
+           rec["ms"], ms_text(rec["device_ms"]), rec["plain_ms"], rec["bound_ms"],
+           rec["bound_by"], launches))
     return rec
 
 

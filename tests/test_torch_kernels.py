@@ -470,6 +470,116 @@ def test_offset_rows_rank_int64(gpu):
     assert torch.equal(r, torch.where(pos >= 0, r0.long() + O, 0))
 
 
+# ------------- the group rank (a warp a lane) of K1 and K2, plain rows
+
+@pytest.fixture(scope="module")
+def group_gpu():
+    """An index of 200 kbp (105 wide rows) with a 4-char ftab, whose ranges
+    average 780 rows, so that the first EXTEND steps of most chains rank on
+    both sides of a row edge; 2,048 reads from it, and 16 long code lanes of
+    9-20 kbp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    fm, genomes = synthetic_fm(n_genomes=4, genome_len=50000, seed=21, precompute_width=4)
+    start, ln = np.asarray(fm.ftab_start, np.int64), np.asarray(fm.ftab_len, np.int64)
+    full = ln > 0
+    crossing = (start[full] - 1) // 1920 != (start[full] + ln[full] - 1) // 1920
+    assert crossing.mean() > 0.2
+    reads = sample_reads(genomes, 2048, 100, seed=5, err=0.01)
+    packed = tuple(torch.from_numpy(a).cuda() for a in pack_reads(reads, 128))
+    rng = np.random.default_rng(6)
+    lens = rng.integers(9000, 20001, 16)
+    codes = np.full((16, 20032), 255, np.uint8)
+    for i, n in enumerate(lens):
+        g = genomes[i % len(genomes)]
+        p = int(rng.integers(0, len(g) - n))
+        r = g[p:p + n].copy()
+        r[rng.random(n) < 0.01] = rng.integers(0, 4)
+        codes[i, :n] = r
+    long_lanes = (torch.from_numpy(codes).cuda(), torch.from_numpy(lens.astype(np.int32)).cuda())
+    return fm, packed, long_lanes
+
+
+def group_index(fm, kind, rowmap=True):
+    """The plain layouts that rank with the group: whole or 2 shards on
+    cuda:0, int32 or int64."""
+    idtype = "int64" if kind.endswith(":i64") else "int32"
+    if kind.startswith("sharded2"):
+        return sharded(fm, 2, idtype, rowmap)
+    fields = fd.fm_arrays(fm)
+    if not rowmap:
+        fields["rowmap"] = None
+    return fd.TorchFM(fields, device="cuda", force_idtype=idtype)
+
+
+GROUP_KINDS = ["plain", "plain:i64", "sharded2", "sharded2:i64"]
+
+
+@pytest.mark.parametrize("kind", GROUP_KINDS)
+def test_group_chain_kernel(group_gpu, kind):
+    """The chain kernel with a warp a lane, against its twin and against
+    the int32 whole-row kernel."""
+    from centrifuger_tpu_torch import kernels
+    fm, (pack2, vmask, lengths), _ = group_gpu
+    tfm = group_index(fm, kind)
+    kernels.reset_launches()
+    hits, nh = de.chain_search(tfm, pack2, vmask, lengths, 23, 6)
+    assert dict(kernels.LAUNCHES) == {kernels.instantiation("chain_search", tfm): 1}
+    want = de.chain_search_plain(tfm, pack2, vmask, lengths, 23, 6)
+    assert torch.equal(hits, want[0]) and torch.equal(nh, want[1])
+    assert int(nh.sum()) > 2048
+    ref = de.chain_search(group_index(fm, "plain"), pack2, vmask, lengths, 23, 6)
+    assert torch.equal(hits, ref[0].to(tfm.idtype)) and torch.equal(nh, ref[1])
+
+
+@pytest.mark.parametrize("kind", ["plain", "plain:i64", "sharded2"])
+def test_group_chain_kernel_long_lanes(group_gpu, kind):
+    """Code lanes of 9-20 kbp (the non-fused engine's long reads)."""
+    fm, _, (codes, lens) = group_gpu
+    tfm = group_index(fm, kind)
+    hits, nh = fd.chain_search_lanes(tfm, codes, lens, 23, 400)
+    want = fd.chain_search_lanes_plain(tfm, codes, lens, 23, 400)
+    assert torch.equal(hits, want[0]) and torch.equal(nh, want[1])
+    assert int(nh.min()) > 0
+
+
+@pytest.mark.parametrize("kind", GROUP_KINDS)
+def test_group_resolve_rows_lf_walk(group_gpu, kind):
+    """resolve_rows with the rowmap off (the group LF walk) on every row of
+    the index, against its twin and against the generic layout's one-thread
+    LF walk."""
+    fm = group_gpu[0]
+    tfm = group_index(fm, kind, rowmap=False)
+    assert tfm.rowmap is None
+    rows = torch.arange(tfm.n, dtype=tfm.idtype, device="cuda")
+    valid = torch.rand(tfm.n, device="cuda") < 0.9
+    got = fd.resolve_rows(tfm, rows, valid)
+    assert torch.equal(got, fd.resolve_rows_plain(tfm, rows, valid))
+    fields = fd.fm_arrays(fm)
+    fields["rowmap"] = None
+    solo = fd.TorchFM(fields, device="cuda", _generic=True)
+    assert torch.equal(got, fd.resolve_rows(solo, rows.int(), valid).to(tfm.idtype))
+
+
+@pytest.mark.parametrize("kind", ["plain", "sharded2"])
+def test_misaligned_rows_refused_on_card(gpu, kind):
+    """A rows tensor (or shard) off a 16-byte boundary never reaches a
+    kernel: the group rank reads rows as 16-byte vectors."""
+    _, pack2, vmask, lengths = gpu
+    tfm = sharded(_gpu_fm(), 2) if kind == "sharded2" else \
+        fd.TorchFM(fd.fm_arrays(_gpu_fm()), device="cuda")
+    rows = tfm.shards["rows"][0] if kind == "sharded2" else tfm.rows
+    shifted = torch.empty(rows.numel() + 1, dtype=rows.dtype, device="cuda")[1:]
+    shifted = shifted.view(rows.shape)
+    shifted.copy_(rows)
+    if kind == "sharded2":
+        tfm.shards["rows"][0] = shifted
+    else:
+        tfm.rows = shifted
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        de.chain_search(tfm, pack2, vmask, lengths, 23, 6)
+
+
 def _gpu_fm():
     return synthetic_fm(n_genomes=3, genome_len=12000, seed=11)[0]
 
