@@ -10,57 +10,52 @@
 // segmented chain / record sums, best / second / hitlen, deduplicated best
 // seqids and the flags; one packed row [5 + k_out] per unit.
 //
-// Bound: small and compute-light; the only large-table traffic is resolving
-// at most W = 8 rows per unit (one rowmap load each, or an LF walk).
-// Design: one warp per unit.  Lane 0 walks the unit's present hits in order
-// (there are at most 4 * H, read straight from the chain output), writes the
-// first W expanded rows to shared memory, lanes 0..W-1 resolve them in
-// parallel, and lane 0 finishes the unit on the W rows in registers.  A
-// template over the rank layout (the inline resolve's LF walk) and its index
-// type: the hits' sp / ep, the expanded rows and the striding are int64 on an
-// int64 index (kernel K9); the resolved sequence ids and the packed rows are
-// int32, as in the JAX program.
+// Bound on this card: small and compute-light.  A unit reads its lanes'
+// nhits and hits once (16 bytes a hit, 32 with int64) and resolves at most
+// W = 8 rows (one rowmap load each, or an LF walk); the device time is the
+// latency of the few dependent memory rounds a unit takes, not the bytes.
+//
+// Design: one warp a unit, WARPS units a block, the unit's chain lanes read
+// by the whole warp.
+//   staging     thread r < lpu (2 nr lanes, 6 nr on the protein path) loads
+//               lane r's nhits; a warp scan gives each lane's first hit in
+//               the lane-major list of the unit's hits, and the warp loads
+//               that list 32 hits a round, one 16-byte hit (load_hit) a
+//               thread, so no hit is read twice from global memory.  Each
+//               lane's first W hits are kept in shared memory: no expanded
+//               row comes from a later one.
+//   scores      each round adds sum (l - adj)^2 of its hits with l >= mhl to
+//               the lanes it covers, one warp reduction a lane; thread r
+//               keeps lane r's score, and the strand (protein: frame, then
+//               strand) choice reads them by shuffle, with the JAX program's
+//               tie rules.
+//   expansion   thread t takes the t-th present hit of the chosen slots in
+//               slot-major order (t < W); a warp exclusive scan of the hits'
+//               hit_counts gives each its first row, and it writes its rows
+//               below W, with their (s, k, l), to shared memory.  The scan's
+//               sum and the number of present hits give FLAG_ROW_OVERFLOW;
+//               mixStrand is whether hits of both k are present.
+//   resolve     with a rowmap, threads 0..W-1 load one entry each; without
+//               one, on the plain layouts the warp walks the rows one after
+//               another (lf_walk over Lanes<Layout>::lf, one memory round an
+//               LF step), and on the others threads 0..W-1 walk one row each.
+//   merge ids   each hit thread reads the previous hit's fields by shuffle;
+//               a ballot of the hits that start a chain gives each its id.
+//   lane 0      the (k, sid, hit) sort of the <= W rows, the record sums,
+//               best / second / hitlen, the best-seqid dedup and the packed
+//               row, in registers.
+// Every *_sync call is made by all 32 threads: the choices they depend on
+// are the same in every thread.  A template over the rank layout (the inline
+// resolve) and its index type: the hits' sp / ep, the expanded rows and the
+// striding are int64 on an int64 index (kernel K9); the resolved sequence
+// ids and the packed rows are int32, as in the JAX program.
 #include "fm_device.cuh"
 
 namespace {
 
 constexpr int W = 8;               // per-unit row budget (U_CAP)
 constexpr int WARPS = 4;           // units per block
-
-struct Slots {
-  int n;          // 2 single-end, 4 paired
-  int lane[4];    // chain lane of each slot, -1 when the strand lost
-  int k[4];       // strand record index: plus = 1, minus = 0
-};
-
-template <class Idx>
-__device__ int32_t lane_score(const Idx* hits, const int32_t* nhits, int lane, int H, int mhl,
-                              int adj) {
-  int32_t s = 0;
-  for (int m = 0; m < nhits[lane]; ++m) {
-    const int32_t l = load_hit(hits, (int64_t)lane * H + m).l;
-    if (l >= mhl) s += (l - adj) * (l - adj);
-  }
-  return s;
-}
-
-// The protein path's frame choice for one read and strand: of lanes lane0,
-// +1, +2 the one with the largest nhits * score; the best starts at 0 and
-// only a strictly larger value replaces it, so ties keep the earlier frame.
-template <class Idx>
-__device__ int chosen_frame(const Idx* hits, const int32_t* nhits, int lane0, int H, int mhl,
-                            int adj) {
-  int32_t best = 0;
-  int tag = 0;
-  for (int fr = 0; fr < 3; ++fr) {
-    const int32_t sc = nhits[lane0 + fr] * lane_score(hits, nhits, lane0 + fr, H, mhl, adj);
-    if (sc > best) {
-      best = sc;
-      tag = fr;
-    }
-  }
-  return lane0 + tag;
-}
+constexpr int LPU_MAX = 12;        // chain lanes a unit: 2 nr, or 6 nr on the protein path
 
 // striding of one hit: rows to resolve (at most me + 1 where it strides)
 // and the forward-pass count
@@ -75,130 +70,214 @@ __device__ __forceinline__ void hit_counts(Idx sp, Idx ep, int32_t me, int32_t* 
   *cnt = static_cast<int32_t>(*simple ? rng : *cf + cb);
 }
 
+__device__ __forceinline__ int32_t warp_inclusive_sum(int32_t v, int t) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int32_t u = __shfl_up_sync(WARP_ALL, v, d);
+    if (t >= d) v += u;
+  }
+  return v;
+}
+
+// One unit's shared memory.
+template <class Idx>
+struct UnitTile {
+  Hit<Idx> hit[LPU_MAX][W];   // the first W hits of each chain lane
+  Idx rows[W];                // the expanded rows
+  int32_t seq[W];             // their sequence ids; 0 from nvalid on
+  int32_t s[W], k[W], l[W];   // each row's hit (slot * H + m), its k and l
+  int32_t chain[W];           // each row's merge-chain id
+};
+
 template <class Layout>
-__global__ void finalize_units_kernel(FMView f, const typename Layout::Idx* __restrict__ hits,
-                                      const int32_t* __restrict__ nhits, int Q, int nr, int H,
-                                      int mhl, int me, int k_out, int protein,
-                                      int32_t* __restrict__ packed) {
+__global__ void __launch_bounds__(WARPS * 32)
+    finalize_units_kernel(FMView f, const typename Layout::Idx* __restrict__ hits,
+                          const int32_t* __restrict__ nhits, int Q, int nr, int H, int mhl,
+                          int me, int k_out, int protein, int32_t* __restrict__ packed) {
   using Idx = typename Layout::Idx;
   const int adj = protein ? 5 : 15;   // _scoreHitLenAdjust
-  __shared__ Idx s_rows[WARPS][W];
-  __shared__ int32_t s_seq[WARPS][W];
-  __shared__ int32_t s_nvalid[WARPS];
+  __shared__ UnitTile<Idx> tiles[WARPS];
   const int wid = threadIdx.x >> 5, ln = threadIdx.x & 31;
   const int q = blockIdx.x * WARPS + wid;
-  const bool live_unit = q < Q;
+  if (q >= Q) return;   // the whole warp
+  UnitTile<Idx>& u = tiles[wid];
+  const int lpu = (protein ? 6 : 2) * nr;
+  const int64_t lane0 = static_cast<int64_t>(lpu) * q;
 
-  Slots sl;
+  // ---- staging and lane scores
+  const int32_t my_nh = ln < lpu ? nhits[lane0 + ln] : 0;
+  const int32_t cum = warp_inclusive_sum(my_nh, ln);   // hits of lanes 0..ln
+  int32_t cum_of[LPU_MAX];
+#pragma unroll
+  for (int r = 0; r < LPU_MAX; ++r) cum_of[r] = __shfl_sync(WARP_ALL, cum, r);
+  const int32_t C = __shfl_sync(WARP_ALL, cum, 31);
+  int32_t my_score = 0;   // thread r < lpu: lane r's score
+  for (int32_t c0 = 0; c0 < C; c0 += 32) {
+    const int32_t i = c0 + ln;   // this thread's hit in the unit's lane-major list
+    int r = 0;
+    int32_t first = 0;
+#pragma unroll
+    for (int k = 0; k < LPU_MAX; ++k)
+      if (cum_of[k] <= i) {
+        r = k + 1;
+        first = cum_of[k];
+      }
+    int32_t sq = 0;
+    if (i < C) {
+      const int32_t m = i - first;
+      const Hit<Idx> e = load_hit(hits, (lane0 + r) * H + m);
+      if (e.l >= mhl) sq = (e.l - adj) * (e.l - adj);
+      if (m < W) u.hit[r][m] = e;
+    }
+    const int r_lo = __shfl_sync(WARP_ALL, r, 0);
+    const int r_hi = __shfl_sync(WARP_ALL, r, min(31, C - 1 - c0));
+    for (int k = r_lo; k <= r_hi; ++k) {
+      const int32_t s = __reduce_add_sync(WARP_ALL, r == k ? sq : 0);
+      if (ln == k) my_score += s;
+    }
+  }
+
+  // ---- strand choice (protein: the frame of each read and strand first)
+  int f1, r1, f2 = -1, r2 = -1;
   bool adjust = false;
-  int32_t total = 0;
-  bool mix = false;
-  // expanded rows (valid ones): hit index s, its k, l
-  int32_t r_s[W], r_k[W], r_l[W];
-  if (ln == 0 && live_unit) {
-    int f1, r1, f2 = -1, r2 = -1;
-    if (protein) {
-      // lanes of a read: fwd frames 0..2, then rc frames 0..2
-      const int base = 6 * nr * q;
-      f1 = chosen_frame(hits, nhits, base, H, mhl, adj);
-      r1 = chosen_frame(hits, nhits, base + 3, H, mhl, adj);
-      if (nr == 2) {
-        f2 = chosen_frame(hits, nhits, base + 6, H, mhl, adj);
-        r2 = chosen_frame(hits, nhits, base + 9, H, mhl, adj);
-      }
-    } else {
-      f1 = 2 * nr * q;
-      r1 = f1 + 1;
-      if (nr == 2) {
-        f2 = f1 + 2;
-        r2 = f1 + 3;
-      }
-      adjust = (nhits[f1] > 0 && nhits[r1] > 0) ||
-               (nr == 2 && nhits[f2] > 0 && nhits[r2] > 0);
-    }
-    int32_t plus = lane_score(hits, nhits, f1, H, mhl, adj);
-    int32_t minus = lane_score(hits, nhits, r1, H, mhl, adj);
-    if (nr == 2) {
-      plus += lane_score(hits, nhits, r2, H, mhl, adj);
-      minus += lane_score(hits, nhits, f2, H, mhl, adj);
-    }
-    const bool tp = plus >= minus, tm = minus >= plus;
-    if (nr == 2) {
-      sl = Slots{4, {tp ? f1 : -1, tp ? r2 : -1, tm ? r1 : -1, tm ? f2 : -1}, {1, 1, 0, 0}};
-    } else {
-      sl = Slots{2, {tp ? f1 : -1, tm ? r1 : -1, -1, -1}, {1, 0, 0, 0}};
-    }
-    // pass 1 over present hits in slot-major order: row expansion + mix
-    int prev_k = -1;
-    for (int i = 0; i < sl.n; ++i) {
-      if (sl.lane[i] < 0) continue;
-      const int nh = nhits[sl.lane[i]];
-      for (int m = 0; m < nh; ++m) {
-        const Hit<Idx> e = load_hit(hits, (int64_t)sl.lane[i] * H + m);
-        int32_t cnt;
-        Idx step, cf;
-        bool simple;
-        hit_counts(e.sp, e.ep, me, &cnt, &step, &cf, &simple);
-        if (prev_k >= 0 && prev_k != sl.k[i]) mix = true;
-        prev_k = sl.k[i];
-        for (int32_t j = total; j < min(total + cnt, W); ++j) {
-          const Idx pos = j - total;
-          s_rows[wid][j] = simple ? e.sp + pos
-                           : (pos < cf ? e.sp + pos * step : e.ep - (pos - cf) * step);
-          r_s[j] = i * H + m;
-          r_k[j] = sl.k[i];
-          r_l[j] = e.l;
+  if (protein) {
+    // of lanes g0, +1, +2 the one with the largest nhits * score; the best
+    // starts at 0 and only a strictly larger value replaces it, so ties keep
+    // the earlier frame
+    const int32_t my_q = my_nh * my_score;
+    const auto chosen = [&](int g0) {
+      int32_t best = 0;
+      int tag = 0;
+      for (int fr = 0; fr < 3; ++fr) {
+        const int32_t v = __shfl_sync(WARP_ALL, my_q, g0 + fr);
+        if (v > best) {
+          best = v;
+          tag = fr;
         }
-        total += cnt;
       }
+      return g0 + tag;
+    };
+    f1 = chosen(0);
+    r1 = chosen(3);
+    if (nr == 2) {
+      f2 = chosen(6);
+      r2 = chosen(9);
     }
-    s_nvalid[wid] = min(total, W);
+  } else {
+    f1 = 0;
+    r1 = 1;
+    if (nr == 2) {
+      f2 = 2;
+      r2 = 3;
+    }
+    bool hit_in[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) hit_in[r] = __shfl_sync(WARP_ALL, my_nh, r) > 0;
+    adjust = (hit_in[0] && hit_in[1]) || (nr == 2 && hit_in[2] && hit_in[3]);
   }
-  __syncwarp();
-  if (live_unit && ln < W)
-    s_seq[wid][ln] = ln < s_nvalid[wid]
-                         ? static_cast<int32_t>(resolve_one<Layout>(f, s_rows[wid][ln]))
-                         : 0;
-  __syncwarp();
-  if (ln != 0 || !live_unit) return;
+  int32_t plus = __shfl_sync(WARP_ALL, my_score, f1);
+  int32_t minus = __shfl_sync(WARP_ALL, my_score, r1);
+  if (nr == 2) {
+    plus += __shfl_sync(WARP_ALL, my_score, r2);
+    minus += __shfl_sync(WARP_ALL, my_score, f2);
+  }
+  const bool tp = plus >= minus, tm = minus >= plus;
+  // slots in the host finalizer's order: plus lanes (f1, r2), then minus
+  // lanes (r1, f2); k = 1 1 0 0 (single-end: f1, r1; k = 1 0)
+  const int slot_lane[4] = {tp ? f1 : -1, nr == 2 ? (tp ? r2 : -1) : (tm ? r1 : -1),
+                            nr == 2 && tm ? r1 : -1, nr == 2 && tm ? f2 : -1};
+  const int slot_k[4] = {1, nr == 2 ? 1 : 0, 0, 0};
+  int32_t slot_n[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int32_t n = __shfl_sync(WARP_ALL, my_nh, max(slot_lane[s], 0));
+    slot_n[s] = slot_lane[s] < 0 ? 0 : n;
+  }
 
-  const int nvalid = s_nvalid[wid];
-  const int32_t* seq = s_seq[wid];
-  // pass 2: merge-chain ids of the hits that own rows
-  int32_t r_chain[W];
-  {
-    int32_t run = 0, chain = 0;
-    bool have_prev = false, prev_uniq = false;
-    int prev_k = 0;
-    int32_t prev_end = 0, prev_sid = 0;
-    for (int i = 0; i < sl.n; ++i) {
-      if (sl.lane[i] < 0) continue;
-      const int nh = nhits[sl.lane[i]];
-      for (int m = 0; m < nh; ++m) {
-        const Hit<Idx> e = load_hit(hits, (int64_t)sl.lane[i] * H + m);
-        int32_t cnt;
-        Idx step, cf;
-        bool simple;
-        hit_counts(e.sp, e.ep, me, &cnt, &step, &cf, &simple);
-        const bool uniq = e.ep == e.sp;
-        const int32_t sid = seq[min(run, W - 1)];
-        const bool merge = have_prev && !mix && uniq && prev_uniq && sl.k[i] == prev_k &&
-                           prev_end + 1 == e.off && sid == prev_sid;
-        if (!merge) ++chain;
-        for (int32_t j = run; j < min(run + cnt, W); ++j) r_chain[j] = chain;
-        run += cnt;
-        have_prev = true;
-        prev_uniq = uniq;
-        prev_k = sl.k[i];
-        prev_end = e.off + e.l;
-        prev_sid = sid;
-      }
+  // ---- row expansion: thread ln takes the ln-th present hit, slot-major
+  int32_t P = 0, m = 0;
+  int my_slot = 0, my_lane = 0, k = 0;
+  bool any_k1 = false, any_k0 = false;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (ln >= P && ln < P + slot_n[s]) {
+      my_slot = s;
+      my_lane = slot_lane[s];
+      k = slot_k[s];
+      m = ln - P;
     }
+    P += slot_n[s];
+    any_k1 |= slot_n[s] > 0 && slot_k[s] == 1;
+    any_k0 |= slot_n[s] > 0 && slot_k[s] == 0;
   }
+  // mixStrand: two consecutive present hits differ in k; k falls along the
+  // slots, so that is hits of both k being present
+  const bool mix = any_k1 && any_k0;
+  const bool own = ln < min(P, W);
+  __syncwarp();   // the staged hits
+  Hit<Idx> e{0, 0, 0, 0};
+  int32_t cnt = 0;
+  Idx step = 1, cf = 0;
+  bool simple = true;
+  if (own) {
+    e = u.hit[my_lane][m];
+    hit_counts(e.sp, e.ep, me, &cnt, &step, &cf, &simple);
+  }
+  const int32_t incl = warp_inclusive_sum(cnt, ln);
+  const int32_t first_row = incl - cnt;
+  // the first W present hits hold every row below W, and a unit with more
+  // than W present hits (one row or more each) passes W
+  const int32_t total = __shfl_sync(WARP_ALL, incl, 31);
+  const bool overflow = P > W || total > W;
+  const int nvalid = min(total, W);
+  const int32_t row_end = own ? min(incl, W) : 0;
+  for (int32_t j = first_row; j < row_end; ++j) {
+    const Idx pos = j - first_row;
+    u.rows[j] = simple ? e.sp + pos : (pos < cf ? e.sp + pos * step : e.ep - (pos - cf) * step);
+    u.s[j] = my_slot * H + m;
+    u.k[j] = k;
+    u.l[j] = e.l;
+  }
+  __syncwarp();
+
+  // ---- resolve the rows
+  if (Lanes<Layout>::G == 1 || Layout::has_rowmap(f)) {
+    if (ln < W)
+      u.seq[ln] = ln < nvalid ? static_cast<int32_t>(resolve_one<Layout>(f, u.rows[ln])) : 0;
+  } else {
+    const typename Lanes<Layout>::Group g = Lanes<Layout>::Group::here();
+    for (int j = 0; j < nvalid; ++j) {
+      const Idx v = lf_walk<Layout>(f, u.rows[j],
+                                    [&](Idx p) { return Lanes<Layout>::lf(f, g, p); });
+      if (ln == 0) u.seq[j] = static_cast<int32_t>(v);
+    }
+    if (ln >= nvalid && ln < W) u.seq[ln] = 0;
+  }
+  __syncwarp();
+
+  // ---- merge-chain ids of the hits that own rows
+  {
+    const int32_t sid = u.seq[min(first_row, W - 1)];
+    const int uniq = own && e.ep == e.sp;
+    const int32_t end = e.off + e.l;
+    const int p_uniq = __shfl_up_sync(WARP_ALL, uniq, 1);
+    const int p_k = __shfl_up_sync(WARP_ALL, k, 1);
+    const int32_t p_end = __shfl_up_sync(WARP_ALL, end, 1);
+    const int32_t p_sid = __shfl_up_sync(WARP_ALL, sid, 1);
+    const bool merge = own && ln > 0 && !mix && uniq && p_uniq && k == p_k &&
+                       p_end + 1 == e.off && sid == p_sid;
+    const unsigned heads = __ballot_sync(WARP_ALL, own && !merge);
+    const int32_t chain = __popc(heads & (WARP_ALL >> (31 - ln)));
+    for (int32_t j = first_row; j < row_end; ++j) u.chain[j] = chain;
+  }
+  __syncwarp();
+  if (ln != 0) return;
+
+  const int32_t* seq = u.seq;
   // sort the valid rows by (k, sid, hit); equal keys are the same hit
   int32_t ka[W], kb[W], kc[W], kl[W], kch[W];
   for (int j = 0; j < nvalid; ++j) {
-    int32_t a = r_k[j], b = seq[j], c = r_s[j], l = r_l[j], ch = r_chain[j];
+    int32_t a = u.k[j], b = seq[j], c = u.s[j], l = u.l[j], ch = u.chain[j];
     int t = j;
     while (t > 0 && (ka[t - 1] > a || (ka[t - 1] == a && (kb[t - 1] > b ||
                                        (kb[t - 1] == b && kc[t - 1] > c))))) {
@@ -272,7 +351,7 @@ __global__ void finalize_units_kernel(FMView f, const typename Layout::Idx* __re
   out[1] = nbest >= 2 ? score : rest;
   out[2] = hitlen;
   out[3] = ne;
-  out[4] = (adjust ? 1 : 0) | (total > W ? 2 : 0);
+  out[4] = (adjust ? 1 : 0) | (overflow ? 2 : 0);
   for (int j = 0; j < k_out; ++j) out[5 + j] = j < ne && j < W ? es[j] : 0;
 }
 

@@ -139,10 +139,11 @@ struct GenericLayout : WholeTables<Idx_> {
 // its owner shard (centrifuger_tpu/parallel/sharded.py _ShardedFMView:
 // _plain_rows_fetch, _rowmap_fetch, _sampled_sa_fetch).  Row r of a table
 // lives at shards[r / rps] + r % rps: one load of the shard's address (the
-// D-entry table stays in L1), a divide and a remainder.  One thread runs its
-// lane to completion, so the JAX program's lockstep termination (_loop_any)
-// has no counterpart.  The rowmap index is clamped to [0, n - 1] by
-// resolve_one before it is routed, so no pad row of the last shard is read.
+// D-entry table stays in L1), a divide and a remainder.  Each lane runs to
+// completion on its own warp (Lanes<Layout>), so the JAX program's lockstep
+// termination (_loop_any) has no counterpart.  The rowmap index is clamped
+// to [0, n - 1] by rowmap_value before it is routed, so no pad row of the
+// last shard is read.
 template <class Idx_>
 struct ShardedPlainLayout {
   using Idx = Idx_;
@@ -215,8 +216,9 @@ __device__ __forceinline__ int32_t sel_find(const FMView& f, Idx row) {
 // threads.  Lanes<Layout> is GroupLanes on the two plain layouts (a warp
 // shares each row fetch: RankGroup, rank_plain.cuh) and
 // SoloLanes, one thread with the layout's own code, on the others.
-// chain_search and resolve_rows's LF walk run on Lanes<Layout>; the other
-// kernels call the layouts directly, one thread a lane.
+// chain_search, prefix_search and the LF walks of resolve_rows and
+// finalize_units run on Lanes<Layout>; rank_probe calls the layouts
+// directly, one thread a query.
 
 struct Solo {
   int t;   // always 0: the thread is its lane's leader

@@ -19,15 +19,17 @@
 // issues.
 //   plain_rank_sym / plain_lf   one thread reads the words it needs one by one
 //                               (up to 121 loads, each used before the next
-//                               is known to be needed).  K3, K5 and rank_probe
-//                               use it.
+//                               is known to be needed).  Only rank_probe,
+//                               which measures it, ranks this way: the other
+//                               kernels use the group on the plain layouts.
 //   group_rank / group_lf       a warp (RankGroup): thread t holds words
 //                               [4 t, 4 t + 4) as one 16-byte load, all issued
 //                               before any is used, so a rank is one memory
 //                               round; the counts are summed with one warp
 //                               reduction and the occ, hi, prev and symbol
 //                               words are shuffled from the thread that loaded
-//                               them.  K1 and K2's LF walk use it.
+//                               them.  K1, K5, and K2's and K3's LF walks
+//                               use it.
 //                               Rows must be 16-byte aligned (the launch path
 //                               checks it).
 #pragma once

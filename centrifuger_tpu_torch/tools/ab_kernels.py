@@ -1,4 +1,5 @@
-"""The chain (K1) and resolve (K2) kernels of several checkouts on one card.
+"""The chain (K1), resolve (K2), prefix (K5) and finalize (K3) kernels of
+several checkouts on one card.
 
 Makes chip_smoke.py's main database (a seeded synthetic nucleotide DB, 64 Mnt
 by default, indexed with the port's builder), its 65,536 read pairs and its
@@ -19,6 +20,14 @@ chip_smoke.cuda_ms, median of 20, 3 for the long lanes) and by device time
   index_select     torch.index_select of the rowmap at those rows
   resolve_lf       resolve_rows on the same rows with the rowmap off (the LF
                    walk)
+  prefix           prefix_search on the lanes the finish stage hands it for
+                   the first batch
+  prefix_long      prefix_search on the long reads' boundary searches, the
+                   lanes the non-fused engine hands it
+  finalize         finalize_units on the first batch's chains (the rowmap
+                   resolve)
+  finalize_lf      the same with the rowmap off (the LF-walk resolve of
+                   --no-rowmap)
 
 Then resolve and index_select call by call, 400 pairs in turns of order, by
 events around each call (the medians, and how many pairs resolve was no
@@ -47,7 +56,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-MEASURES = ("chain", "chain_i64", "chain_long", "resolve", "index_select", "resolve_lf")
+MEASURES = ("chain", "chain_i64", "chain_long", "resolve", "index_select", "resolve_lf",
+            "prefix", "prefix_long", "finalize", "finalize_lf")
 PAIRS = 400
 
 
@@ -111,20 +121,25 @@ def child(tree, work, out, label):
     fm = eng.dev
     fm64 = cs.make_engine(prefix, force_idtype="int64").dev
     bq = cs.read_batches(reads)
-    (pack2, vmask), lengths, _, L = eng._pack_reads(bq[0])
+    (pack2, vmask), lengths, nr, L = eng._pack_reads(bq[0])
     packed = tuple(torch.from_numpy(x).cuda() for x in (pack2, vmask, lengths))
     mhl = eng.param.min_hit_len
     H = L // (mhl + 1) + 1
-    with cs.spying(engine_mod, ["resolve_rows"]) as handed:
+    finish = ["resolve_rows", "prefix_search"]
+    with cs.spying(engine_mod, finish) as handed:
         for qs in bq:
             eng.finish_packed(eng._dispatch_fused(qs))
-            if "resolve_rows" in handed:
+            if all(k in handed for k in finish):
                 break
     rows, valid = handed["resolve_rows"]
+    pcodes, pms = handed["prefix_search"]
     unfused = cs.make_engine(prefix, unfused=True, dev=fm)
-    with cs.spying(engine_mod, ["chain_search_lanes"]) as handed:
+    with cs.spying(engine_mod, ["chain_search_lanes", "prefix_search"]) as handed:
         unfused.query_batch(cs.read_batches(os.path.join(reads, "long"), paired=False)[0])
     codes, clen, lmhl, lH = handed["chain_search_lanes"]
+    lcodes, lms = handed["prefix_search"]
+    hits, nhits = de.chain_search(fm, *packed, mhl, H)
+    me = eng.param.max_result * eng.param.max_result_per_hit_factor
     rowmap = fm.rowmap
     calls = dict(
         chain=(lambda: de.chain_search(fm, *packed, mhl, H), 20, 5),
@@ -132,14 +147,20 @@ def child(tree, work, out, label):
         chain_long=(lambda: fd.chain_search_lanes(fm, codes, clen, lmhl, lH), 3, 2),
         resolve=(lambda: fd.resolve_rows(fm, rows, valid), 20, 5),
         index_select=(lambda: torch.index_select(rowmap, 0, rows), 20, 5),
-        resolve_lf=(lambda: fd.resolve_rows(fm, rows, valid), 20, 5))
+        resolve_lf=(lambda: fd.resolve_rows(fm, rows, valid), 20, 5),
+        prefix=(lambda: fd.prefix_search(fm, pcodes, pms), 20, 5),
+        prefix_long=(lambda: fd.prefix_search(fm, lcodes, lms), 20, 5),
+        finalize=(lambda: de.finalize_units(fm, hits, nhits, nr, mhl, me, eng.K_OUT), 20, 5),
+        finalize_lf=(lambda: de.finalize_units(fm, hits, nhits, nr, mhl, me, eng.K_OUT), 20,
+                     5))
     digest = hashlib.sha1()
     res = dict(label=label, tree=tree, device=torch.cuda.get_device_name(0),
                shapes=dict(chain=list(packed[0].shape), chain_long=list(codes.shape),
-                           resolve_rows=len(rows)))
+                           resolve_rows=len(rows), prefix=list(pcodes.shape),
+                           prefix_long=list(lcodes.shape), finalize=list(hits.shape)))
     for name in MEASURES:
         fn, reps, dev_reps = calls[name]
-        if name == "resolve_lf":
+        if name.endswith("_lf"):
             fm.rowmap = None   # once, so that no call rebuilds the index's view
         try:
             outs = fn()

@@ -76,11 +76,13 @@ Phases (any failure exits non-zero and prints no result):
      call (the host's enqueue included) and by device time (events behind a
      spin kernel that hides the enqueue; a PyTorch call that computes the
      same function, where there is one, both ways too): chain_search and
-     finalize_units on one batch of 8,192 pairs, prefix_search and
-     resolve_rows on the very tensors the host finish stage hands them for a
-     batch (resolve_rows with the rowmap and, with its LF-walk step count,
-     without), rank_probe (one rank, one extend, one LF of each layout) at the
-     batch's lane count, and one rank of 2^20 random rows per layout; the
+     finalize_units on one batch of 8,192 pairs (on the main index also
+     with the rowmap off: the LF-walk resolve of --no-rowmap), prefix_search
+     and resolve_rows on the very tensors the host finish stage hands them
+     for a batch (resolve_rows with the rowmap and, with its LF-walk step
+     count, without), rank_probe (one rank, one extend, one LF of each
+     layout) at the batch's lane count, and one rank of 2^20 random rows per
+     layout; the
      int64 instantiations of path D the same way; for each run of path E
      (--engine jax, the long reads, -k 0) chain_search_lanes, prefix_search
      and resolve_rows on the very tensors the non-fused engine hands them for
@@ -818,9 +820,12 @@ def spying(module, names):
             setattr(module, n, orig[n])
 
 
-def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
+def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None,
+                  finalize_lf=False):
     """Every kernel a path launched against its plain twin at the path's
-    shapes.  `replaces` maps the kernels to the JAX programs they replace."""
+    shapes.  `replaces` maps the kernels to the JAX programs they replace;
+    finalize_lf also holds finalize_units with the rowmap off (its LF-walk
+    resolve, as --no-rowmap runs it) to its twin and times it."""
     import torch
     from centrifuger_tpu_torch import kernels
     from centrifuger_tpu_torch.classify import engine_unfused as engine_mod
@@ -861,6 +866,26 @@ def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None):
             nbytes(hits, nhits))
         flagged = int(((packed[:, 4] != 0) | (packed[:, 3] > eng.K_OUT)).sum())
         say("%s: %d units, %d flagged" % (label, len(packed), flagged))
+    if finalize_lf:
+        rowmap = fm.rowmap
+        fm.rowmap = None
+        try:
+            def fin():
+                return de.finalize_units(fm, hits, nhits, nr, mhl, me, eng.K_OUT)
+
+            def fin_plain():
+                return de.finalize_units_plain(fm, hits, nhits, nr, mhl, me, eng.K_OUT)
+            got = fin()
+            want, tr, _ = rec.traffic(fin_plain)
+            if max_abs_err(got, want) or not torch.equal(got, packed):
+                fail("%s: finalize_units (LF walk) disagrees with its plain twin or with "
+                     "the rowmap's result" % label)
+            say("%s: finalize_units LF-walk branch (--no-rowmap): err 0  kernel %.4f ms "
+                "(device %s)  plain %.4f ms  bound %.4f ms (%s)"
+                % ((label, cuda_ms(fin, 20), ms_text(device_ms(fin, 5)), cuda_ms(fin_plain, 3))
+                   + rec.bound(tr, nbytes(hits, nhits, got))))
+        finally:
+            fm.rowmap = rowmap
 
     # K5 and K2 on the tensors the host finish stage hands their wrappers
     # when the batches run as on the path: the first call of each
@@ -1343,7 +1368,7 @@ def main():
         r, ref_hits = phase_kernels("phase 6 main", eng, bq, launches["main"], {
             "chain_search": jax_fm + "852 + " + jax_de + "145",
             "finalize_units": jax_de + "164", "prefix_search": jax_fm + "1147",
-            "resolve_rows": jax_fm + "707", "rank_probe": jax_fm + "450"})
+            "resolve_rows": jax_fm + "707", "rank_probe": jax_fm + "450"}, finalize_lf=True)
         recs += r
         eng._finish_pool().shutdown()
         del eng

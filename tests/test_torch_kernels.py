@@ -651,3 +651,188 @@ def test_unfused_engine_on_card(port_small, k, hitk, idtype):
     fused = ClassifierTorch(fm, tax, ClassifierParam(max_result=k, max_result_per_hit_factor=hitk),
                             device="cuda", force_idtype=idtype)
     assert _results(fused.query_batch(qs)) == out["cpu"]
+
+
+# ------------ K5 (a warp a lane) and K3 (a warp a unit): the edge cases
+
+def prefix_edge_lanes(genomes, pw, L, seed):
+    """uint8 code lanes [B, L] (255 invalid) and int32 ms [B] for the
+    prefix search's edge cases: ms < 0, 0 and < pw; a 255 inside the first
+    pw-mer (the short tail); random codes, whose pw-mer is often absent from
+    the ftab; a 255 met mid-extension; ms = L and ms > L; exact substrings
+    of a genome, which the search covers whole; and substrings with
+    errors."""
+    rng = np.random.default_rng(seed)
+    lanes, ms = [], []
+
+    def piece(n):
+        g = genomes[int(rng.integers(len(genomes)))]
+        p = int(rng.integers(0, len(g) - n))
+        return g[p:p + n].astype(np.uint8)
+
+    def add(x, m):
+        lanes.append(x)
+        ms.append(m)
+    for m in (-7, -1, 0, 1, pw - 1):
+        add(piece(L), m)
+    for d in range(pw):                                   # the short tail
+        x, m = piece(L), int(rng.integers(pw, L + 1))
+        x[m - 1 - d] = 255
+        add(x, m)
+    for _ in range(8):                                    # mostly empty ftab k-mers
+        add(rng.integers(0, 4, L).astype(np.uint8), int(rng.integers(pw, L + 1)))
+    for _ in range(8):                                    # a 255 mid-extension
+        x, m = piece(L), int(rng.integers(pw + 2, L + 1))
+        x[int(rng.integers(0, m - pw - 1))] = 255
+        add(x, m)
+    for m in (L, L, L + 1, L + 40):                       # ms = L and beyond
+        add(piece(L), m)
+    for _ in range(8):                                    # covered whole
+        add(piece(L), int(rng.integers(pw, L + 1)))
+    for _ in range(16):                                   # errors
+        x = piece(L)
+        err = rng.random(L) < 0.02
+        x[err] = rng.integers(0, 4, int(err.sum()))
+        add(x, int(rng.integers(0, L + 1)))
+    return np.stack(lanes), np.array(ms, np.int32)
+
+
+def prefix_long_lanes(genomes, n_lanes, L, seed):
+    """Lanes of L codes whose ms runs in the thousands: half exact pieces of
+    a genome (searched over all of ms), half with 0.1% errors."""
+    rng = np.random.default_rng(seed)
+    codes = np.full((n_lanes, L), 255, np.uint8)
+    ms = rng.integers(L // 2, L + 1, n_lanes).astype(np.int32)
+    for i in range(n_lanes):
+        g = genomes[i % len(genomes)]
+        p = int(rng.integers(0, len(g) - L))
+        x = g[p:p + L].astype(np.uint8)
+        if i % 2:
+            err = rng.random(L) < 0.001
+            x[err] = rng.integers(0, 4, int(err.sum()))
+        codes[i] = x
+    return codes, ms
+
+
+def finalize_edge_units(n, Q, lpu, H, mhl, seed, protein=False):
+    """Hand-made chains for finalize_units over an index of n rows: hits
+    [lpu Q, H, 4] int64 (sp, ep, l, off) and nhits int32 [lpu Q].  Unit 0
+    has no hits; unit 1 ties its strands (protein: its frames too); unit 2
+    has every lane full to H; unit 3 has hits whose rows reach n - 1; units
+    4 and 5 expand past W = 8 rows (one wide hit; many one-row hits).  The
+    rest are random, most lanes with 0-3 hits: one-row hits in runs of consecutive offsets (which
+    merge where they resolve alike), narrow ranges, ranges that stride
+    (wider than max_entries), l around mhl."""
+    rng = np.random.default_rng(seed)
+    hits = np.zeros((Q * lpu, H, 4), np.int64)
+    nh = np.where(rng.random(Q * lpu) < 0.8, rng.integers(0, 4, Q * lpu),
+                  rng.integers(0, H + 1, Q * lpu)).astype(np.int32)
+
+    def lane_hits(b, count):
+        off = int(rng.integers(0, 8))
+        for m in range(count):
+            u = rng.random()
+            sp = int(rng.integers(0, n))
+            ep = sp if u < 0.5 else sp + int(rng.integers(1, 6)) if u < 0.8 else \
+                sp + int(rng.integers(6, 120)) if u < 0.95 else sp + int(rng.integers(0, n))
+            l = int(rng.integers(mhl, mhl + 60)) if rng.random() < 0.9 else mhl - 3
+            hits[b, m] = (sp, min(ep, n - 1), l, off)
+            off += l + (1 if rng.random() < 0.7 else int(rng.integers(2, 9)))
+    for b in range(Q * lpu):
+        lane_hits(b, H)
+    hits[:, :, 2] = np.maximum(hits[:, :, 2], 1)
+    nh[:lpu] = 0                                          # no hits
+    base = lpu                                            # a tie
+    nh[base:base + lpu] = max(nh[base], 1)
+    if protein:
+        for g in range(0, lpu, 3):
+            hits[base + g + 1] = hits[base + g + 2] = hits[base]
+    else:
+        hits[base + 1] = hits[base]
+        if lpu == 4:
+            hits[base + 2] = hits[base + 3]
+    nh[2 * lpu:3 * lpu] = H                               # full to H
+    hits[3 * lpu:4 * lpu, 0, :2] = n - 1                  # the last row
+    hits[3 * lpu, 1, :2] = (n - 9, n - 1)
+    nh[3 * lpu:4 * lpu] = np.maximum(nh[3 * lpu:4 * lpu], 2)
+    hits[4 * lpu, 0, :2] = (0, n - 1)                     # past W: one wide hit
+    nh[4 * lpu] = max(nh[4 * lpu], 1)
+    nh[5 * lpu:6 * lpu] = H                               # past W: many hits
+    hits[5 * lpu:6 * lpu, :, 1] = hits[5 * lpu:6 * lpu, :, 0]
+    return hits, nh
+
+
+@pytest.fixture(scope="module")
+def edge_gpu():
+    """A run-rich index with its rowmap and pw 10 (many ftab k-mers empty),
+    and its genomes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return family_fm(row_map=True)
+
+
+EDGE_KINDS = ["plain", "plain:i64", "sharded2", "sharded2:i64", "runblock", "generic"]
+
+
+def edge_index(fm, kind, rowmap=True):
+    """The plain layouts of group_index, or the run-block or generic layout
+    (int32) on the card."""
+    if kind not in ("runblock", "generic"):
+        return group_index(fm, kind, rowmap)
+    fields = fd.fm_arrays(fm)
+    if not rowmap:
+        fields["rowmap"] = None
+    if kind == "generic":
+        return fd.TorchFM(fields, device="cuda", _generic=True)
+    return fd.TorchFM(fields, device="cuda", serve_layout="runblock")
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_prefix_search_kernel_edges(edge_gpu, kind):
+    """K5 on the edge-case lanes and on lanes searched for thousands of
+    steps, against its twin and the int32 plain kernel."""
+    fm, genomes = edge_gpu
+    tfm, ref = edge_index(fm, kind), edge_index(fm, "plain")
+    for codes, ms in (prefix_edge_lanes(genomes, fm.precompute_width, 100, 1),
+                      prefix_long_lanes(genomes, 8, 3000, 2)):
+        codes, ms = torch.from_numpy(codes).cuda(), torch.from_numpy(ms).cuda()
+        got = fd.prefix_search(tfm, codes, ms)
+        want = fd.prefix_search_plain(tfm, codes, ms)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(g, r.to(tfm.idtype))
+                   for g, r in zip(got, fd.prefix_search(ref, codes, ms)))
+    assert int(got[0].max()) >= 1500
+
+
+@pytest.mark.parametrize("nr", [1, 2])
+@pytest.mark.parametrize("rowmap", [True, False])
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_finalize_units_kernel_edges(edge_gpu, kind, rowmap, nr):
+    """K3 on hand-made chains (no hits, a strand tie, lanes full to H, rows
+    at n - 1, units past W), with the rowmap and with the LF walk, against
+    its twin and the int32 plain kernel."""
+    fm = edge_gpu[0]
+    tfm, ref = edge_index(fm, kind, rowmap), edge_index(fm, "plain", rowmap)
+    for H in (6, 40):
+        h, nh = finalize_edge_units(fm.n, 256, 2 * nr, H, 23, seed=H + nr)
+        hits = torch.from_numpy(h).cuda()
+        nhits = torch.from_numpy(nh).cuda()
+        got = de.finalize_units(tfm, hits.to(tfm.idtype), nhits, nr, 23, 40, 8)
+        want = de.finalize_units_plain(tfm, hits.to(tfm.idtype), nhits, nr, 23, 40, 8)
+        assert torch.equal(got, want)
+        assert torch.equal(got, de.finalize_units(ref, hits.int(), nhits, nr, 23, 40, 8))
+        flags = got[:, 4]
+        assert bool((flags & de.FLAG_ROW_OVERFLOW).any()) and bool((got[:, 3] > 1).any())
+
+
+@pytest.mark.parametrize("nr", [1, 2])
+def test_finalize_units_kernel_protein_edges(protein_gpu, nr):
+    """K3's frame choice on hand-made protein chains: frame ties included;
+    the LF walk stops at end-marker rows."""
+    fm, tfm = protein_gpu[:2]
+    for H in (4, 40):
+        h, nh = finalize_edge_units(fm.n, 128, 6 * nr, H, 11, seed=H + nr, protein=True)
+        hits, nhits = torch.from_numpy(h).int().cuda(), torch.from_numpy(nh).cuda()
+        got = de.finalize_units(tfm, hits, nhits, nr, 11, 40, 8, protein=True)
+        assert torch.equal(got, de.finalize_units_plain(tfm, hits, nhits, nr, 11, 40, 8,
+                                                        protein=True))
