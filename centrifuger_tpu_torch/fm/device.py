@@ -747,24 +747,27 @@ def rank_sym(fm, c, pos):
     return out[0], out[1]
 
 
-def backward_extend(fm, c, sp, ep):
+def backward_extend(fm, c, sp, ep, group=False):
     """Wrapper of BackwardExtend (DeviceFM.backward_extend): [M] each,
-    0 <= sp <= ep < n -> (nsp, nep)."""
+    0 <= sp <= ep < n -> (nsp, nep).  `group` runs it as the kernels of a
+    lane do (Lanes<Layout>, a warp a query) instead of the layout's
+    one-thread code."""
     _check(fm, "backward_extend", c=(c, fm.idtype), sp=(sp, fm.idtype),
            ep=(ep, fm.idtype))
     if c.device.type == "cpu":
         nsp, nep = fm.backward_extend(c.long(), sp.long(), ep.long())
         return nsp.to(fm.idtype), nep.to(fm.idtype)
-    out = _probe(fm, 1, c, sp, ep)
+    out = _probe(fm, 3 if group else 1, c, sp, ep)
     return out[0], out[1]
 
 
-def lf(fm, p):
-    """Wrapper of the LF-mapping (DeviceFM.lf): p [M] in [0, n) -> [M]."""
+def lf(fm, p, group=False):
+    """Wrapper of the LF-mapping (DeviceFM.lf): p [M] in [0, n) -> [M];
+    `group` as for backward_extend."""
     _check(fm, "lf", p=(p, fm.idtype))
     if p.device.type == "cpu":
         return fm.lf(p.long()).to(fm.idtype)
-    return _probe(fm, 2, p, p, p)[0]
+    return _probe(fm, 4 if group else 2, p, p, p)[0]
 
 
 # ------------------------------------------------------------ read tables

@@ -72,7 +72,7 @@ BUILD_LOG = {}
 _LOCK = threading.Lock()
 _LIBS = {}
 _ENTRY_FNS = {}     # entry -> its prototyped ctypes function
-ROW_ALIGN = 16      # bytes: the group rank reads rows as 16-byte vectors
+ROW_ALIGN = 16      # bytes: the group ranks read rows and blocks as 16-byte vectors
 
 
 def reset_launches():
@@ -184,13 +184,14 @@ class FMView(ctypes.Structure):
 def _aligned(t, what):
     if t is not None and t.data_ptr() % ROW_ALIGN:
         raise ValueError("%s is not %d-byte aligned (data_ptr %% %d = %d): the kernels read "
-                         "wide rows as 16-byte vectors" % (what, ROW_ALIGN, ROW_ALIGN,
-                                                           t.data_ptr() % ROW_ALIGN))
+                         "it as 16-byte vectors" % (what, ROW_ALIGN, ROW_ALIGN,
+                                                    t.data_ptr() % ROW_ALIGN))
 
 
 def _fm_view(fm):
     """A new FMView of the index `fm`; raises where its wide rows (or a
-    shard of them) are not 16-byte aligned."""
+    shard of them) or its generic indicator and stream words are not 16-byte
+    aligned."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -213,6 +214,9 @@ def _fm_view(fm):
             _aligned(t, "shard %d of the wide rows" % s)
         return FMView(**common, **fm.shard_fields())
     _aligned(fm.rows, "the wide rows")
+    for name in ("ind", "lit", "run"):
+        _aligned(None if getattr(fm, name) is None else getattr(fm, name).words,
+                 "the generic %s words" % name)
     return FMView(
         **common, rows=ptr(fm.rows), mega=ptr(fm.mega),
         ind_words=sub(fm.ind, "words"), ind_cum=sub(fm.ind, "cum"),

@@ -14,7 +14,8 @@
 // Bound on this card.  A lane is a chain of dependent EXTEND steps (about 80
 // for a 100-code lane, 19,000 for a 20 kbp read), each two ranks at random
 // rows: one 512-byte wide row each on the plain layouts, three 84-byte rows
-// on the run-block layout, up to five fetches on the generic one.  The bytes
+// on the run-block layout, an indicator group and two stream blocks on the
+// generic one.  The bytes
 // a batch moves bound it at about 0.26 ms (plain, 32,768 lanes); a step's
 // memory latency (L2 or HBM, hundreds of cycles), paid once a step for as
 // many steps as the longest lane has, bounds it from the other side.  When
@@ -32,9 +33,13 @@
 // a lane also keeps lanes whose chains differ from sharing a warp, whose
 // diverged groups would issue one after another: of 4, 8, 16 and 32 threads
 // a lane, 32 ran the main batch and the long reads fastest (PERF.md, "Group
-// size").  Blocks of 128 threads hold 4 lanes.  The warp's thread 0 writes
-// the hits.  On the run-block and generic layouts one thread runs a lane, as
-// the layouts' ranks are written.  The code source is a template parameter:
+// size").  On the run-block and generic layouts a warp runs a lane too
+// (MegaLanes, GenericLanes): a step is two memory rounds, the sp and ep
+// indicator rows or groups, then the four stream rows or blocks they decide
+// (rank_runblock.cuh's group section); a warp ran the run-block and the
+// protein chain faster than a half-warp (PERF.md, findings, "A warp against a
+// half-warp").  Blocks of 128 threads hold 4 lanes.  The warp's thread 0
+// writes the hits.  The code source is a template parameter:
 //   PackedDna  lane 2u reads read u forward, lane 2u + 1 its reverse
 //              complement as 3 - code[len - 1 - i], straight from pack2/vmask
 //   CodeLanes  ready-made uint8 code lanes (protein: six frames a read; the

@@ -36,9 +36,9 @@
 //               sum and the number of present hits give FLAG_ROW_OVERFLOW;
 //               mixStrand is whether hits of both k are present.
 //   resolve     with a rowmap, threads 0..W-1 load one entry each; without
-//               one, on the plain layouts the warp walks the rows one after
-//               another (lf_walk over Lanes<Layout>::lf, one memory round an
-//               LF step), and on the others threads 0..W-1 walk one row each.
+//               one, the warp walks the rows one after another (lf_walk over
+//               Lanes<Layout>::lf: one memory round an LF step on the plain
+//               layouts, two on the run-block and generic ones).
 //   merge ids   each hit thread reads the previous hit's fields by shuffle;
 //               a ballot of the hits that start a chain gives each its id.
 //   lane 0      the (k, sid, hit) sort of the <= W rows, the record sums,
@@ -241,9 +241,9 @@ __global__ void __launch_bounds__(WARPS * 32)
   __syncwarp();
 
   // ---- resolve the rows
-  if (Lanes<Layout>::G == 1 || Layout::has_rowmap(f)) {
+  if (Layout::has_rowmap(f)) {
     if (ln < W)
-      u.seq[ln] = ln < nvalid ? static_cast<int32_t>(resolve_one<Layout>(f, u.rows[ln])) : 0;
+      u.seq[ln] = ln < nvalid ? static_cast<int32_t>(rowmap_value<Layout>(f, u.rows[ln])) : 0;
   } else {
     const typename Lanes<Layout>::Group g = Lanes<Layout>::Group::here();
     for (int j = 0; j < nvalid; ++j) {

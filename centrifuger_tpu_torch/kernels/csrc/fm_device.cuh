@@ -213,12 +213,15 @@ __device__ __forceinline__ int32_t sel_find(const FMView& f, Idx row) {
 
 // ---------------------------------------------------------- lane groups
 // How a kernel that runs each lane to completion spreads a lane over
-// threads.  Lanes<Layout> is GroupLanes on the two plain layouts (a warp
-// shares each row fetch: RankGroup, rank_plain.cuh) and
-// SoloLanes, one thread with the layout's own code, on the others.
+// threads.  Lanes<Layout> is a warp on every layout: GroupLanes on the two
+// plain layouts (one memory round a step, each thread one 16-byte load of
+// each wide row: RankGroup, rank_plain.cuh), MegaLanes on the run-block
+// layout and GenericLanes on the generic one (two rounds a step, the
+// indicator and then the streams: rank_runblock.cuh).
 // chain_search, prefix_search and the LF walks of resolve_rows and
-// finalize_units run on Lanes<Layout>; rank_probe calls the layouts
-// directly, one thread a query.
+// finalize_units run on Lanes<Layout>; SoloLanes (one thread) is the rowmap
+// branch of resolve_rows, which ranks nothing, and rank_probe's modes 0-2
+// call the layouts' one-thread code directly, a thread a query.
 
 struct Solo {
   int t;   // always 0: the thread is its lane's leader
@@ -264,10 +267,67 @@ struct GroupLanes {
   }
 };
 
-template <class Layout>
-struct LanesOf {
-  using type = SoloLanes<Layout>;
+// The rank of sp - 1 is 0 where sp == 0, and the ep count is skipped where
+// sp == ep (only the symbol at ep is needed): extend_from_ranks' shortcut.
+// A warp a lane ran the run-block and the protein chain faster than a
+// half-warp (PERF.md, findings, "A warp against a half-warp").
+struct MegaLanes {
+  using Idx = int32_t;
+  using Group = RankGroup;
+  static constexpr int G = 32;   // a warp
+  static __device__ __forceinline__ void backward_extend(const FMView& f, const Group& g,
+                                                         int32_t c, int32_t sp, int32_t ep,
+                                                         int32_t* nsp, int32_t* nep) {
+    int32_t r_sp, r_ep, sym_ep;
+    mega_group_pair(f, g, c, sp - 1, sp > 0, ep, sp != ep, &r_sp, &r_ep, &sym_ep);
+    extend_from_ranks<int32_t>(f, c, sp, ep, r_sp, r_ep, sym_ep, nsp, nep);
+  }
+  static __device__ __forceinline__ int32_t lf(const FMView& f, const Group& g, int32_t p) {
+    int32_t sym;
+    const int32_t r = mega_group_lf_rank(f, g, p, &sym);
+    const int32_t corr = (sym == f.last_chr && p < f.first_isa) ? 1 : 0;
+    return tab<int32_t>(f.psum, sym) + r + corr - 1;
+  }
 };
+
+// The stream width is a run-time field of the index: each step picks the
+// W-bit instantiation (the branch is the same in every thread).
+template <class Idx_>
+struct GenericLanes {
+  using Idx = Idx_;
+  using Group = RankGroup;
+  static constexpr int G = 32;   // a warp
+  static __device__ __forceinline__ void backward_extend(const FMView& f, const Group& g,
+                                                         int32_t c, Idx sp, Idx ep, Idx* nsp,
+                                                         Idx* nep) {
+    Idx r_sp, r_ep;
+    int32_t sym_ep;
+    const bool need_a = sp > 0, count_b = sp != ep;
+    switch (f.width) {
+      case 2: generic_group_pair<Idx, 2>(f, g, c, sp - 1, need_a, ep, count_b, &r_sp, &r_ep,
+                                         &sym_ep); break;
+      case 4: generic_group_pair<Idx, 4>(f, g, c, sp - 1, need_a, ep, count_b, &r_sp, &r_ep,
+                                         &sym_ep); break;
+      default: generic_group_pair<Idx, 8>(f, g, c, sp - 1, need_a, ep, count_b, &r_sp, &r_ep,
+                                          &sym_ep);
+    }
+    extend_from_ranks<Idx>(f, c, sp, ep, r_sp, r_ep, sym_ep, nsp, nep);
+  }
+  static __device__ __forceinline__ Idx lf(const FMView& f, const Group& g, Idx p) {
+    int32_t sym;
+    Idx r;
+    switch (f.width) {
+      case 2: r = generic_group_lf_rank<Idx, 2>(f, g, p, &sym); break;
+      case 4: r = generic_group_lf_rank<Idx, 4>(f, g, p, &sym); break;
+      default: r = generic_group_lf_rank<Idx, 8>(f, g, p, &sym);
+    }
+    const Idx corr = (sym == f.last_chr && p < static_cast<Idx>(f.first_isa)) ? 1 : 0;
+    return tab<Idx>(f.psum, sym) + r + corr - 1;
+  }
+};
+
+template <class Layout>
+struct LanesOf;
 template <class Idx>
 struct LanesOf<PlainLayout<Idx>> {
   using type = GroupLanes<Idx, WholeRows>;
@@ -276,12 +336,20 @@ template <class Idx>
 struct LanesOf<ShardedPlainLayout<Idx>> {
   using type = GroupLanes<Idx, ShardedRows>;
 };
+template <>
+struct LanesOf<MegaLayout> {
+  using type = MegaLanes;
+};
+template <class Idx>
+struct LanesOf<GenericLayout<Idx>> {
+  using type = GenericLanes<Idx>;
+};
 template <class Layout>
 using Lanes = typename LanesOf<Layout>::type;
 
 // The LF walk of BackwardToSampledSA: from `row` to a first-ISA, sampled,
 // selected or (where the index has no selected rows) end-marker row, then
-// that row's value.  lf(p) is one LF step (a thread's or a group's).
+// that row's value.  lf(p) is one LF step of the lane's group.
 template <class Layout, class Lf>
 __device__ __forceinline__ typename Layout::Idx lf_walk(const FMView& f, typename Layout::Idx row,
                                                         Lf lf) {
@@ -307,16 +375,6 @@ __device__ __forceinline__ typename Layout::Idx rowmap_value(const FMView& f,
                                                              typename Layout::Idx row) {
   using Idx = typename Layout::Idx;
   return Layout::rowmap_at(f, tmin(tmax(row, Idx(0)), static_cast<Idx>(f.n - 1)));
-}
-
-// SA row -> stored value (BackwardToSampledSA), one thread: one rowmap load,
-// or the LF walk.
-template <class Layout>
-__device__ __forceinline__ typename Layout::Idx resolve_one(const FMView& f,
-                                                            typename Layout::Idx row) {
-  using Idx = typename Layout::Idx;
-  if (Layout::has_rowmap(f)) return rowmap_value<Layout>(f, row);
-  return lf_walk<Layout>(f, row, [&](Idx p) { return Layout::lf(f, p); });
 }
 
 // The pw-mer that ends at position `end - 1` of a code sequence, read back to

@@ -17,8 +17,9 @@
 // row's and the ep row's 16-byte loads together (one a thread a row) and
 // sums them with one warp reduction (GroupLanes::backward_extend), so a step
 // is one memory round, and the ep row is not counted where sp == ep.  On the
-// run-block and generic layouts one thread runs a lane with the layout's own
-// rank.  Blocks of 128 threads; the b >= B exit is per warp, and thread 0
+// run-block and generic layouts a warp runs a lane as well, a step in two
+// rounds (MegaLanes / GenericLanes: the indicator, then the streams).
+// Blocks of 128 threads; the b >= B exit is per warp, and thread 0
 // writes out.  Every thread of the warp computes the start (start_kmer, then
 // ftab_entry) itself: its loads are the lane's own codes and ftab pair, the
 // same address in every thread, so each is one broadcast transaction, and no

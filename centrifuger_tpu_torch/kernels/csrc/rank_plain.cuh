@@ -19,9 +19,12 @@
 // issues.
 //   plain_rank_sym / plain_lf   one thread reads the words it needs one by one
 //                               (up to 121 loads, each used before the next
-//                               is known to be needed).  Only rank_probe,
-//                               which measures it, ranks this way: the other
-//                               kernels use the group on the plain layouts.
+//                               is known to be needed).  Only rank_probe's
+//                               one-thread modes (0-2), which measure it,
+//                               rank this way: the other kernels use the
+//                               group on the plain layouts (the run-block
+//                               and generic layouts have a group of their
+//                               own, rank_runblock.cuh).
 //   group_rank / group_lf       a warp (RankGroup): thread t holds words
 //                               [4 t, 4 t + 4) as one 16-byte load, all issued
 //                               before any is used, so a rank is one memory

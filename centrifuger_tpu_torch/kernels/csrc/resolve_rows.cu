@@ -13,10 +13,13 @@
 // row: latency-bound, one memory round a step at best.
 //
 // Design.  The rowmap branch runs one thread a row.  The LF walk runs on
-// Lanes<Layout> (fm_device.cuh): on the plain layouts a warp walks one row,
-// and each step is one 512-byte row read in one round of 16-byte loads
+// Lanes<Layout> (fm_device.cuh), a warp a row on every layout: on the plain
+// layouts each step is one 512-byte row read in one round of 16-byte loads
 // (group_lf, rank_plain.cuh) instead of one thread's word by word scan; on
-// the other layouts one thread walks a row with the layout's own rank.
+// the run-block and generic layouts each step reads the indicator, then the
+// literal and the run stream's rows or blocks once, and takes the symbol and
+// its count from the same words (two rounds; MegaLayout::lf reads the three
+// rows twice).
 // sel_rows is searched by binary search.  The TPU version's lane compaction
 // and lockstep loop are not needed.  A template over the rank layout; rows
 // and values are in its index type (int64: kernel K9, where the LF walk is

@@ -1,14 +1,17 @@
 """The chain (K1), resolve (K2), prefix (K5) and finalize (K3) kernels of
-several checkouts on one card.
+several checkouts on one card, on the plain, the run-block (K8) and the
+generic (K7, K9) layouts.
 
 Makes chip_smoke.py's main database (a seeded synthetic nucleotide DB, 64 Mnt
 by default, indexed with the port's builder), its 65,536 read pairs and its
-1,024 long reads once, then runs each checkout in the order given (for
-example parent, change, change, parent) in a process of its own that imports
-only that checkout.  Each run builds its kernels, loads the index on the card
-and times, by CUDA events around the wrapper call (host enqueue included;
-chip_smoke.cuda_ms, median of 20, 3 for the long lanes) and by device time
-(chip_smoke.device_ms, median of 5, 2 for the long lanes):
+1,024 long reads, and its path A protein database (32 M amino acids by
+default, 65,536 read pairs back-translated from it), once, the two in
+processes of their own side by side; then runs each checkout in the order
+given (for example parent, change, change, parent) in a process of its own
+that imports only that checkout.  Each run builds its kernels, loads the
+indexes on the card and times, by CUDA events around the wrapper call (host
+enqueue included; chip_smoke.cuda_ms, median of 20, 3 for the long lanes)
+and by device time (chip_smoke.device_ms, median of 5, 2 for the long lanes):
 
   chain            chain_search on the first batch (8,192 pairs: 32,768
                    strand lanes of 100 codes), as phase 6 of chip_smoke.py
@@ -28,6 +31,15 @@ chip_smoke.cuda_ms, median of 20, 3 for the long lanes) and by device time
                    resolve)
   finalize_lf      the same with the rowmap off (the LF-walk resolve of
                    --no-rowmap)
+  chain_runblock, prefix_runblock, resolve_lf_runblock, finalize_lf_runblock
+                   chain, prefix, resolve_lf and finalize_lf on the main
+                   index loaded with --serve-layout runblock (the mega-table)
+  chain_generic_i64, prefix_generic_i64
+                   chain and prefix on the main index loaded as an int64
+                   index with --serve-layout runblock (served as generic)
+  chain_protein    chain_search_lanes on the protein database's first batch
+                   (8,192 pairs: 98,304 amino-acid lanes), as path A of
+                   chip_smoke.py hands it
 
 Then resolve and index_select call by call, 400 pairs in turns of order, by
 events around each call (the medians, and how many pairs resolve was no
@@ -39,7 +51,7 @@ OUT/ab_kernels_<n>.json; the digests must agree.  A table of every run
 closes the output.
 
   python3 centrifuger_tpu_torch/tools/ab_kernels.py TREE [TREE ...] [--db-nt N]
-      [--seed S] [--out DIR]
+      [--db-aa N] [--seed S] [--out DIR]
 
 Each TREE is a checkout holding chip_smoke.py and centrifuger_tpu_torch/.  The
 data is made under this checkout's .smoke_work/ and removed at the end.
@@ -49,6 +61,7 @@ import argparse
 import hashlib
 import importlib.util
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -57,7 +70,9 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 MEASURES = ("chain", "chain_i64", "chain_long", "resolve", "index_select", "resolve_lf",
-            "prefix", "prefix_long", "finalize", "finalize_lf")
+            "prefix", "prefix_long", "finalize", "finalize_lf", "chain_runblock",
+            "prefix_runblock", "resolve_lf_runblock", "finalize_lf_runblock",
+            "chain_generic_i64", "prefix_generic_i64", "chain_protein")
 PAIRS = 400
 
 
@@ -140,28 +155,49 @@ def child(tree, work, out, label):
     lcodes, lms = handed["prefix_search"]
     hits, nhits = de.chain_search(fm, *packed, mhl, H)
     me = eng.param.max_result * eng.param.max_result_per_hit_factor
+    rb = cs.make_engine(prefix, "runblock").dev
+    g64 = cs.make_engine(prefix, "runblock", force_idtype="int64").dev
+    prot = cs.make_engine(os.path.join(work, "protein", "db"))
+    acodes, alen, _, aL = prot._pack_reads_protein(
+        cs.read_batches(os.path.join(work, "protein"))[0])
+    acodes, alen = torch.from_numpy(acodes).cuda(), torch.from_numpy(alen).cuda()
+    amhl = prot.param.min_hit_len
+    aH = aL // (amhl + 1) + 1
     rowmap = fm.rowmap
+
+    def fin(index):
+        return lambda: de.finalize_units(index, hits, nhits, nr, mhl, me, eng.K_OUT)
+    # name: (call, event reps, device reps, the index whose rowmap is off meanwhile)
     calls = dict(
-        chain=(lambda: de.chain_search(fm, *packed, mhl, H), 20, 5),
-        chain_i64=(lambda: de.chain_search(fm64, *packed, mhl, H), 20, 5),
-        chain_long=(lambda: fd.chain_search_lanes(fm, codes, clen, lmhl, lH), 3, 2),
-        resolve=(lambda: fd.resolve_rows(fm, rows, valid), 20, 5),
-        index_select=(lambda: torch.index_select(rowmap, 0, rows), 20, 5),
-        resolve_lf=(lambda: fd.resolve_rows(fm, rows, valid), 20, 5),
-        prefix=(lambda: fd.prefix_search(fm, pcodes, pms), 20, 5),
-        prefix_long=(lambda: fd.prefix_search(fm, lcodes, lms), 20, 5),
-        finalize=(lambda: de.finalize_units(fm, hits, nhits, nr, mhl, me, eng.K_OUT), 20, 5),
-        finalize_lf=(lambda: de.finalize_units(fm, hits, nhits, nr, mhl, me, eng.K_OUT), 20,
-                     5))
+        chain=(lambda: de.chain_search(fm, *packed, mhl, H), 20, 5, None),
+        chain_i64=(lambda: de.chain_search(fm64, *packed, mhl, H), 20, 5, None),
+        chain_long=(lambda: fd.chain_search_lanes(fm, codes, clen, lmhl, lH), 3, 2, None),
+        resolve=(lambda: fd.resolve_rows(fm, rows, valid), 20, 5, None),
+        index_select=(lambda: torch.index_select(rowmap, 0, rows), 20, 5, None),
+        resolve_lf=(lambda: fd.resolve_rows(fm, rows, valid), 20, 5, fm),
+        prefix=(lambda: fd.prefix_search(fm, pcodes, pms), 20, 5, None),
+        prefix_long=(lambda: fd.prefix_search(fm, lcodes, lms), 20, 5, None),
+        finalize=(fin(fm), 20, 5, None),
+        finalize_lf=(fin(fm), 20, 5, fm),
+        chain_runblock=(lambda: de.chain_search(rb, *packed, mhl, H), 20, 5, None),
+        prefix_runblock=(lambda: fd.prefix_search(rb, pcodes, pms), 20, 5, None),
+        resolve_lf_runblock=(lambda: fd.resolve_rows(rb, rows, valid), 20, 5, rb),
+        finalize_lf_runblock=(fin(rb), 20, 5, rb),
+        chain_generic_i64=(lambda: de.chain_search(g64, *packed, mhl, H), 20, 5, None),
+        prefix_generic_i64=(lambda: fd.prefix_search(g64, pcodes, pms), 20, 5, None),
+        chain_protein=(lambda: fd.chain_search_lanes(prot.dev, acodes, alen, amhl, aH), 20, 5,
+                       None))
     digest = hashlib.sha1()
     res = dict(label=label, tree=tree, device=torch.cuda.get_device_name(0),
                shapes=dict(chain=list(packed[0].shape), chain_long=list(codes.shape),
                            resolve_rows=len(rows), prefix=list(pcodes.shape),
-                           prefix_long=list(lcodes.shape), finalize=list(hits.shape)))
+                           prefix_long=list(lcodes.shape), finalize=list(hits.shape),
+                           chain_protein=list(acodes.shape)))
     for name in MEASURES:
-        fn, reps, dev_reps = calls[name]
-        if name.endswith("_lf"):
-            fm.rowmap = None   # once, so that no call rebuilds the index's view
+        fn, reps, dev_reps, off = calls[name]
+        saved = None if off is None else off.rowmap
+        if off is not None:
+            off.rowmap = None   # once, so that no call rebuilds the index's view
         try:
             outs = fn()
             for t in outs if isinstance(outs, tuple) else (outs,):
@@ -169,8 +205,9 @@ def child(tree, work, out, label):
             res[name] = dict(event_ms=yard.cuda_ms(fn, reps),
                              device_ms=yard.device_ms(fn, dev_reps))
         finally:
-            fm.rowmap = rowmap
-        cs.say("%s: %-12s event %.4f ms, device %.4f ms"
+            if off is not None:
+                off.rowmap = saved
+        cs.say("%s: %-20s event %.4f ms, device %.4f ms"
                % (label, name, res[name]["event_ms"], res[name]["device_ms"]))
     res["paired"] = pr = paired(calls["resolve"][0], calls["index_select"][0], PAIRS)
     cs.say("%s: paired events (%d): resolve median %.4f ms, index_select %.4f ms, resolve no "
@@ -187,6 +224,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--db-nt", type=int, default=64_000_000)
+    ap.add_argument("--db-aa", type=int, default=32_000_000)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
     ap.add_argument("--child", nargs=2, metavar=("WORK", "LABEL"),
@@ -204,9 +242,19 @@ def main():
     cs.WORK, cs.OUT = work, args.out
     try:
         t0 = time.time()
-        cs.make_database("main", args.db_nt, args.seed)
-        cs.say("main database of %d nt, its reads and long reads made and indexed in %.1f s"
-               % (args.db_nt, time.time() - t0))
+        # forked, so that each process keeps this one's WORK and OUT
+        fork = multiprocessing.get_context("fork")
+        procs = [fork.Process(target=cs.make_database, args=(kind, size, args.seed))
+                 for kind, size in (("main", args.db_nt), ("protein", args.db_aa))]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join()
+            if p.exitcode:
+                cs.fail("making a database failed (%s/build_*.txt)" % args.out)
+        cs.say("main database of %d nt (its reads and long reads) and protein database of "
+               "%d aa (its reads) made and indexed in %.1f s"
+               % (args.db_nt, args.db_aa, time.time() - t0))
         results = []
         for i, tree in enumerate(map(os.path.abspath, args.trees)):
             label = "run %d %s" % (i + 1, os.path.basename(tree))
@@ -221,13 +269,13 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     if len({r["digest"] for r in results}) != 1:
         cs.fail("the runs' outputs differ: %s" % [r["digest"] for r in results])
-    cs.say("%-16s %s" % ("ms event/device", "  ".join("%-21s" % r["label"] for r in results)))
+    cs.say("%-20s %s" % ("ms event/device", "  ".join("%-21s" % r["label"] for r in results)))
     for name in MEASURES:
-        cs.say("%-16s %s" % (name, "  ".join("%-21s" % (
+        cs.say("%-20s %s" % (name, "  ".join("%-21s" % (
             "%.4f / %.4f" % (r[name]["event_ms"], r[name]["device_ms"])) for r in results)))
-    cs.say("%-16s %s" % ("resolve <= sel", "  ".join("%-21s" % (
+    cs.say("%-20s %s" % ("resolve <= sel", "  ".join("%-21s" % (
         "%d / %d" % (r["paired"]["resolve_no_slower"], PAIRS)) for r in results)))
-    cs.say("%-16s %s" % ("host us res/sel", "  ".join("%-21s" % (
+    cs.say("%-20s %s" % ("host us res/sel", "  ".join("%-21s" % (
         "%.2f / %.2f" % (r["paired"]["host_us"]["resolve"],
                          r["paired"]["host_us"]["index_select"])) for r in results)))
     cs.say("every run's outputs agree (sha1 %s); %s" % (results[0]["digest"],

@@ -76,13 +76,15 @@ Phases (any failure exits non-zero and prints no result):
      call (the host's enqueue included) and by device time (events behind a
      spin kernel that hides the enqueue; a PyTorch call that computes the
      same function, where there is one, both ways too): chain_search and
-     finalize_units on one batch of 8,192 pairs (on the main index also
-     with the rowmap off: the LF-walk resolve of --no-rowmap), prefix_search
-     and resolve_rows on the very tensors the host finish stage hands them
-     for a batch (resolve_rows with the rowmap and, with its LF-walk step
-     count, without), rank_probe (one rank, one extend, one LF of each
-     layout) at the batch's lane count, and one rank of 2^20 random rows per
-     layout; the
+     finalize_units on one batch of 8,192 pairs (on the main index, path B
+     and path D generic also with the rowmap off: the warp LF-walk resolve
+     of --no-rowmap), prefix_search and resolve_rows on the very tensors the
+     host finish stage hands them for a batch (resolve_rows with the rowmap
+     and, with its LF-walk step count, without), rank_probe (one rank, one
+     extend, one LF of each layout) at the batch's lane count, one rank of
+     2^20 random rows per layout, and rank_probe's group modes (extend and
+     LF through Lanes<Layout>, a warp a query, as every kernel of a lane
+     runs them) on 2^20 queries per layout, beside the one-thread modes; the
      int64 instantiations of path D the same way; for each run of path E
      (--engine jax, the long reads, -k 0) chain_search_lanes, prefix_search
      and resolve_rows on the very tensors the non-fused engine hands them for
@@ -973,6 +975,32 @@ def rank_probe_record(rec, fm, probe, replaces):
     rec.add(name, replaces, lambda: fd.rank_sym(fm, c, sp),
             lambda: ints(fm.rank_sym(c.long(), sp.long())), nbytes(c, sp))
     say("phase 6: %s one rank of %d random rows: %.4f ms" % (name, MANY_ROWS, many_ranks_ms(fm)))
+    group_rank_check(fm, name)
+
+
+def group_rank_check(fm, name):
+    """rank_probe's group modes (BackwardExtend and LF through Lanes<Layout>,
+    a warp a query: what every kernel of a lane runs) on MANY_ROWS random
+    queries, held to the twins and to the one-thread modes, and timed beside
+    them."""
+    from centrifuger_tpu_torch.fm import device as fd
+    c, sp, ep = probe_tensors(fm, MANY_ROWS, seed=9)
+    for what, group, solo, plain in (
+            ("extend", lambda: fd.backward_extend(fm, c, sp, ep, group=True),
+             lambda: fd.backward_extend(fm, c, sp, ep),
+             lambda: fm.backward_extend(c.long(), sp.long(), ep.long())),
+            ("lf", lambda: (fd.lf(fm, sp, group=True),), lambda: (fd.lf(fm, sp),),
+             lambda: (fm.lf(sp.long()),))):
+        got = group()
+        err = max(max(max_abs_err(g, w.to(fm.idtype)) for g, w in zip(got, plain())),
+                  max(max_abs_err(g, w) for g, w in zip(got, solo())))
+        if err:
+            fail("%s group %s disagrees with its plain twin or the one-thread mode"
+                 % (name, what))
+        say("phase 6: %s group %s of %d queries: err 0  kernel %.4f ms (device %s)  "
+            "one-thread %.4f ms (device %s)"
+            % (name, what, MANY_ROWS, cuda_ms(group, 20), ms_text(device_ms(group, 5)),
+               cuda_ms(solo, 20), ms_text(device_ms(solo, 5))))
 
 
 def offset_rows_check(label, fm):
@@ -1376,7 +1404,7 @@ def main():
         eng = make_engine(prefixes["main"], "runblock")
         engine_rates("path B", eng, bq, N_PAIRS, "profile_runblock.txt")
         r, _ = phase_kernels("phase 6 path B", eng, bq, launches["runblock"], {
-            k: jax_fm + "521" for k in fused}, ref_hits=ref_hits)
+            k: jax_fm + "521" for k in fused}, ref_hits=ref_hits, finalize_lf=True)
         recs += r
         eng._finish_pool().shutdown()
         del eng, bq
@@ -1417,7 +1445,7 @@ def main():
         engine_rates("path D runblock (generic)", eng, bq, N_PAIRS,
                      "profile_int64_generic.txt")
         r, _ = phase_kernels("phase 6 path D generic", eng, bq, launches["i64_generic"], {
-            k: jax_fm + "141 + 372" for k in fused}, ref_hits=ref_hits)
+            k: jax_fm + "141 + 372" for k in fused}, ref_hits=ref_hits, finalize_lf=True)
         recs += r
         eng._finish_pool().shutdown()
         del eng

@@ -159,7 +159,14 @@ def protein_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     fm, recs = synthetic_protein_fm()
-    rng = np.random.default_rng(2)
+    tfm = fd.TorchFM(fd.fm_arrays(fm), device="cuda")
+    return (fm, tfm) + protein_lanes(recs)
+
+
+def protein_lanes(recs, seed=2):
+    """Amino-acid code lanes [B, L] on the card (255 invalid) cut from the
+    records, with 3% substitutions and 2% invalid codes, and their lengths."""
+    rng = np.random.default_rng(seed)
     B, L = 6 * 2 * 64, 64
     codes = np.full((B, L), 255, np.uint8)
     lengths = np.zeros(B, np.int32)
@@ -172,8 +179,7 @@ def protein_gpu():
         frag[rng.random(len(frag)) < 0.02] = 255
         codes[i, :len(frag)] = frag
         lengths[i] = len(frag)
-    tfm = fd.TorchFM(fd.fm_arrays(fm), device="cuda")
-    return fm, tfm, torch.from_numpy(codes).cuda(), torch.from_numpy(lengths).cuda()
+    return torch.from_numpy(codes).cuda(), torch.from_numpy(lengths).cuda()
 
 
 def probe_queries(fm, seed):
@@ -836,3 +842,105 @@ def test_finalize_units_kernel_protein_edges(protein_gpu, nr):
         got = de.finalize_units(tfm, hits, nhits, nr, 11, 40, 8, protein=True)
         assert torch.equal(got, de.finalize_units_plain(tfm, hits, nhits, nr, 11, 40, 8,
                                                         protein=True))
+
+
+# ---------- the run-block and generic layouts: a warp a lane (K7, K8, K9)
+
+RB_KINDS = ["runblock", "generic", "generic:i64", "protein"]
+
+
+@pytest.fixture(scope="module")
+def rb_gpu():
+    """The run-rich nucleotide index and its genomes, the protein index and
+    its records, and the protein chain lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    fm, genomes = family_fm(row_map=True)
+    pfm, recs = synthetic_protein_fm()
+    return fm, genomes, pfm, [r[:-1] for r in recs]
+
+
+def rb_index(rb, kind, rowmap=False):
+    """(the index of `kind` on the card, its host index, its sequences):
+    runblock and generic (int32 or int64) of the nucleotide index, or the
+    protein index (generic, sigma 21)."""
+    fm, genomes, pfm, recs = rb
+    if kind == "protein":
+        return fd.TorchFM(fd.fm_arrays(pfm), device="cuda"), pfm, recs
+    fields = fd.fm_arrays(fm)
+    if not rowmap:
+        fields["rowmap"] = None
+    if kind == "runblock":
+        return fd.TorchFM(fields, device="cuda", serve_layout="runblock"), fm, genomes
+    idtype = "int64" if kind.endswith(":i64") else "int32"
+    return fd.TorchFM(fields, device="cuda", _generic=True, force_idtype=idtype), fm, genomes
+
+
+@pytest.mark.parametrize("kind", RB_KINDS)
+def test_rb_group_rank_probe(rb_gpu, kind):
+    """rank_probe's group modes (BackwardExtend and LF through Lanes<Layout>,
+    a warp a query) against the twins and the one-thread modes, at the
+    table edges and at random rows."""
+    from centrifuger_tpu_torch import kernels
+    tfm, fm, _ = rb_index(rb_gpu, kind)
+    assert tfm.layout == ("runblock" if kind == "runblock" else "generic")
+    c, sp, ep = (x.to(tfm.idtype) for x in probe_queries(fm, 6))
+    kernels.reset_launches()
+    got = fd.backward_extend(tfm, c, sp, ep, group=True)
+    want = tfm.backward_extend(c.long(), sp.long(), ep.long())
+    assert all(torch.equal(g, w.to(tfm.idtype)) for g, w in zip(got, want))
+    assert all(torch.equal(g, s) for g, s in zip(got, fd.backward_extend(tfm, c, sp, ep)))
+    rows = torch.cat([sp, ep])
+    got = fd.lf(tfm, rows, group=True)
+    assert torch.equal(got, tfm.lf(rows.long()).to(tfm.idtype))
+    assert torch.equal(got, fd.lf(tfm, rows))
+    assert dict(kernels.LAUNCHES) == {kernels.instantiation("rank_probe", tfm): 4}
+
+
+@pytest.mark.parametrize("kind", RB_KINDS)
+def test_rb_chain_and_prefix(rb_gpu, kind):
+    """K1 (K6's body) and K5 with a warp a lane on the run-block and generic
+    layouts: the chains of sampled reads (protein: code lanes), the prefix
+    search's edge-case lanes and long searches, against their twins."""
+    tfm, fm, seqs = rb_index(rb_gpu, kind)
+    if kind == "protein":
+        codes, lengths = protein_lanes(seqs)
+        hits, nh = fd.chain_search_lanes(tfm, codes, lengths, 11, 6)
+        want = fd.chain_search_lanes_plain(tfm, codes, lengths, 11, 6)
+        long_lanes = prefix_long_lanes(seqs, 8, 140, 2)
+    else:
+        reads = sample_reads(seqs, 512, 100, seed=3, err=0.01)
+        packed = tuple(torch.from_numpy(a).cuda() for a in pack_reads(reads, 128))
+        hits, nh = de.chain_search(tfm, *packed, 23, 6)
+        want = de.chain_search_plain(tfm, *packed, 23, 6)
+        long_lanes = prefix_long_lanes(seqs, 8, 3000, 2)
+    assert torch.equal(hits, want[0]) and torch.equal(nh, want[1])
+    assert int(nh.sum()) > 50
+    for codes, ms in (prefix_edge_lanes(seqs, fm.precompute_width, 100, 1), long_lanes):
+        codes, ms = torch.from_numpy(codes).cuda(), torch.from_numpy(ms).cuda()
+        got = fd.prefix_search(tfm, codes, ms)
+        want = fd.prefix_search_plain(tfm, codes, ms)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("nr", [1, 2])
+@pytest.mark.parametrize("kind", RB_KINDS)
+def test_rb_lf_walks(rb_gpu, kind, nr):
+    """K2's LF-walk resolve and K3's --no-rowmap finalize (its warp LF walk)
+    on the run-block and generic layouts: every row of the index and
+    hand-made chains, against their twins."""
+    tfm, fm, _ = rb_index(rb_gpu, kind)
+    assert tfm.rowmap is None
+    rows = torch.arange(tfm.n, dtype=tfm.idtype, device="cuda")
+    valid = torch.rand(tfm.n, device="cuda") < 0.9
+    assert torch.equal(fd.resolve_rows(tfm, rows, valid),
+                       fd.resolve_rows_plain(tfm, rows, valid))
+    protein = kind == "protein"
+    lpu, mhl = (6 * nr, 11) if protein else (2 * nr, 23)
+    for H in (6, 40):
+        h, nh = finalize_edge_units(fm.n, 128, lpu, H, mhl, seed=H + nr, protein=protein)
+        hits = torch.from_numpy(h).to("cuda", tfm.idtype)
+        nhits = torch.from_numpy(nh).cuda()
+        got = de.finalize_units(tfm, hits, nhits, nr, mhl, 40, 8, protein=protein)
+        assert torch.equal(got, de.finalize_units_plain(tfm, hits, nhits, nr, mhl, 40, 8,
+                                                        protein=protein))
