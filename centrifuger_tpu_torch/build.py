@@ -216,6 +216,7 @@ def save_index(prefix, fm, tax, seq_length, protein):
 def load_index(prefix):
     from .fm.index import FMIndexData
     fm = FMIndexData.load(prefix + ".fm.npz")
+    fm.source_prefix = prefix   # enables the wide-row disk cache (fm/device.py)
     if os.path.exists(prefix + ".rowmap.npz"):
         fm.rowmap = np.load(prefix + ".rowmap.npz")["rowmap"]
     tax = Taxonomy.load(prefix + ".tax.npz")

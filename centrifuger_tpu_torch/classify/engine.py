@@ -16,6 +16,13 @@ cannot take (-k 0, --hitk-factor 0, a read over L_MAX) go to the non-fused
 engine on the same device.  On an int64 index the flagged units' chains ship
 in the blob as lo and hi int32 words of each int64 (sp, ep, l, off).
 
+Serving loops, as the JAX engine's: query_pipelined_packed (packed results to
+TSV lines), query_pipelined (one result object a read: the CLI's read-prep
+routes), and the bulk FASTQ route, iter_prepacked on a producer thread (one
+native parse-and-pack pass a batch) feeding serve_tsv_prepacked, which
+uploads and dispatches on the serving thread and formats on the finish
+workers.
+
 Bit-identical to ClassifierNP / the reference binary; enforced by the golden
 TSV tests.
 """
@@ -30,6 +37,7 @@ from .engine_np import ClassifierResult, BWTHit
 from .engine_unfused import ClassifierTorchUnfused, _round_up
 from .device_engine import fused_classify, fused_classify_protein, U_CAP
 from .translate import translate_frames
+from ..io.fastq_fast import iter_packed_batches
 from ..utils import COMP_TABLE
 
 
@@ -122,11 +130,21 @@ class ClassifierTorch(ClassifierTorchUnfused):
     def _dispatch_fused(self, queries):
         if self.protein:
             codes, lengths, nr, L = self._pack_reads_protein(queries)
-            program, reads = fused_classify_protein, (self._upload(codes),)
-        else:
-            (pack2, vmask), lengths, nr, L = self._pack_reads(queries)
-            program = fused_classify
-            reads = (self._upload(pack2), self._upload(vmask))
+            return self._launch(fused_classify_protein, (self._upload(codes),),
+                                lengths, nr, L, queries)
+        reads, lengths, nr, _ = self._pack_reads(queries)
+        return self._dispatch_packed(reads, lengths, nr, queries)
+
+    def _dispatch_packed(self, reads, lengths, nr, queries):
+        """Dispatch from host-packed numpy arrays, reads = (pack2, vmask) as
+        _pack_reads or the native producer (io/fastq_fast.py) gives them: the
+        upload and the launch run on the calling (serving) thread, so a
+        producer thread that packs never touches a CUDA tensor
+        (engine_fused._dispatch_packed).  Nucleotide indexes only."""
+        return self._launch(fused_classify, (self._upload(reads[0]), self._upload(reads[1])),
+                            lengths, nr, reads[0].shape[1] * 4, queries)
+
+    def _launch(self, program, reads, lengths, nr, L, queries):
         mhl = self.param.min_hit_len
         H = max(L // (mhl + 1) + 1, 1)
         out = program(
@@ -314,6 +332,74 @@ class ClassifierTorch(ClassifierTorchUnfused):
                 continue
             pend.append(pool.submit(self._finish_packed_ctx,
                                     self._dispatch_fused(batch)))
+            if len(pend) >= self.PIPELINE_DEPTH:
+                yield pend.popleft().result()
+        while pend:
+            yield pend.popleft().result()
+
+    def query_pipelined(self, batches):
+        """Yields one result list per batch, in order (engine_fused.
+        query_pipelined): batch i's finish and result objects overlap batch
+        i+1's upload and device work.  The CLI's per-read-result routes
+        (barcodes, UMIs, --un / --cl, sample sheets, --expand-taxid) take it."""
+        pool = self._finish_pool()
+        pend = deque()
+        for batch in batches:
+            if not batch or not self._fused_ok() or self._too_long(batch):
+                while pend:
+                    yield pend.popleft().result()
+                yield self._unfused_batch(batch) if batch else []
+                continue
+            pend.append(pool.submit(self._finish_fused, self._dispatch_fused(batch)))
+            if len(pend) >= self.PIPELINE_DEPTH:
+                yield pend.popleft().result()
+        while pend:
+            yield pend.popleft().result()
+
+    # --------------------------------------------------- bulk FASTQ serving
+
+    def iter_prepacked(self, path, batch_size):
+        """Producer-side batches for serve_tsv_prepacked from one FASTQ file:
+        (read ids, queries, (pack2, vmask), lengths, nr), packed by one native
+        C pass a batch (native/fastqpack.cpp); the batches the C parser
+        refuses come from the Python reader and are packed by _pack_reads
+        (engine_fused.iter_prepacked).  Runs on a producer thread: numpy
+        only.  A protein index packs six frames a read and has no such route."""
+        if self.protein:
+            raise ValueError("the prepacked route is for nucleotide indexes")
+        for ids, queries, reads, lengths, nr in iter_packed_batches(path, batch_size):
+            if reads is None:
+                reads, lengths, nr, _ = self._pack_reads(queries)
+            yield ids, queries, reads, lengths, nr
+
+    def finish_tsv_ctx(self, ctx, read_ids):
+        """Worker-side finish and TSV formatting of a dispatched batch:
+        (lines, classified count, reads)."""
+        packed, fb = self.finish_packed(ctx)
+        lines, ncls = self.format_tsv_batch(packed, fb, ctx["queries"], read_ids)
+        return lines, ncls, len(ctx["queries"])
+
+    def serve_tsv_prepacked(self, items):
+        """The bulk serving loop (engine_fused.serve_tsv_prepacked): `items`
+        yields iter_prepacked's tuples, typically from a producer thread;
+        yields (lines, classified count, reads) a batch, in order.  The
+        serving thread uploads and dispatches; result pulls, fallbacks and
+        TSV formatting run on the finish workers.  A batch the fused program
+        cannot take (-k 0, --hitk-factor 0, a read over L_MAX) goes to the
+        non-fused engine, as query_pipelined_packed hands it."""
+        pool = self._finish_pool()
+        pend = deque()
+        for ids, queries, reads, lengths, nr in items:
+            if not self._fused_ok() or int(lengths.max(initial=0)) > self.L_MAX:
+                while pend:
+                    yield pend.popleft().result()
+                batch = [queries[i] for i in range(len(queries))]
+                lines, ncls = self.format_tsv_batch(
+                    None, dict(enumerate(self._unfused_batch(batch))), batch, ids)
+                yield lines, ncls, len(batch)
+                continue
+            ctx = self._dispatch_packed(reads, lengths, nr, queries)
+            pend.append(pool.submit(self.finish_tsv_ctx, ctx, ids))
             if len(pend) >= self.PIPELINE_DEPTH:
                 yield pend.popleft().result()
         while pend:

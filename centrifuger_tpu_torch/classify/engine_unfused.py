@@ -25,6 +25,8 @@ Bit-identical to ClassifierNP and to the reference binary; enforced by the
 golden TSV tests.
 """
 
+from collections import deque
+
 import numpy as np
 import torch
 
@@ -138,6 +140,28 @@ class ClassifierTorchUnfused(ClassifierNP):
         if self.protein:
             return self._query_batch_protein(queries)
         return self._stage_finalize(self._stage_prep(self._stage_dispatch(queries)))
+
+    def query_pipelined(self, batches):
+        """Yields one result list per batch, equal to query_batch's, in order
+        (engine_jax.ClassifierJax.query_pipelined): up to two chain searches
+        in flight on the device while the host runs strand selection and
+        finalize prep of the batches before them."""
+        qa, qb = deque(), deque()
+        for batch in batches:
+            if self.protein:
+                yield self._query_batch_protein(batch)
+                continue
+            qa.append(self._stage_dispatch(batch))
+            if len(qa) >= 2:
+                qb.append(self._stage_prep(qa.popleft()))
+            if len(qb) >= 2:
+                yield self._stage_finalize(qb.popleft())
+        while qa:
+            qb.append(self._stage_prep(qa.popleft()))
+            if len(qb) >= 2:
+                yield self._stage_finalize(qb.popleft())
+        while qb:
+            yield self._stage_finalize(qb.popleft())
 
     def _stage_dispatch(self, queries):
         """Stage A: encode strand lanes + chain-search launch."""

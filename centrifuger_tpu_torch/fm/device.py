@@ -38,7 +38,12 @@ words to int64 and count bits with SWAR.  A wrapper runs the plain version
 only for CPU tensors; a CUDA tensor always launches the kernel.
 """
 
+import contextlib
 import copy
+import hashlib
+import os
+import sys
+import zipfile
 
 import numpy as np
 import torch
@@ -262,6 +267,59 @@ def build_wide_rows(bwt_codes):
     return rows
 
 
+SERVE_CACHE_SUFFIX = ".serve_plain_w.npz"
+
+
+def serve_cache_digest(fields):
+    """The staleness guard of the wide-row disk cache: the row layout's
+    version tag, n, first_isa and every len // 64-th sampled-SA entry
+    (centrifuger_tpu.fm.device._serve_cache_digest, so that either package's
+    file is a hit for the other)."""
+    h = hashlib.sha1()
+    h.update(b"wide1920-v2")        # serving-row layout version
+    h.update(np.int64(fields["n"]).tobytes())
+    h.update(np.int64(fields["first_isa"]).tobytes())
+    sa = fields["sampled_sa"]
+    h.update(np.ascontiguousarray(sa[:: max(1, len(sa) // 64)]).tobytes())
+    return h.hexdigest()
+
+
+def serve_plain_rows(fields):
+    """The plain layout's wide rows (uint32 [n // 1920 + 1, 128]), read from
+    <prefix>.serve_plain_w.npz when the index was loaded from a prefix
+    (`source_prefix`) and the file's digest matches; else built from the
+    decoded BWT and, with a prefix, written there.  A stale digest, a file of
+    another shape or an unreadable file rebuilds.  The file is written under a
+    temporary name and then renamed, so a concurrent reader never sees half of
+    it; a failed write leaves the rows as built."""
+    prefix = fields.get("source_prefix")
+    path = prefix + SERVE_CACHE_SUFFIX if prefix else None
+    digest = serve_cache_digest(fields) if path else None
+    shape = (int(fields["n"]) // WIDE_BLOCK + 1, WIDE_WORDS)
+    if path and os.path.exists(path):
+        try:
+            with np.load(path) as z:
+                if str(z["digest"]) == digest:
+                    rows = z["rows"]
+                    if rows.shape == shape and rows.dtype.itemsize == 4:
+                        # the JAX package stores uint32, an int32 view reads the same bytes
+                        return rows.view(np.uint32)
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            pass
+    rows = build_wide_rows(fields["bwt_codes"]())
+    if path:
+        tmp = "%s.%d.tmp" % (path, os.getpid())
+        try:
+            with open(tmp, "wb") as f:
+                np.savez(f, rows=rows, digest=digest)
+            os.replace(tmp, path)
+        except OSError as e:
+            sys.stderr.write("[serve cache] not written (%s)\n" % e)
+            with contextlib.suppress(OSError):
+                os.remove(tmp)
+    return rows
+
+
 def offset_wide_rows(rows, offset):
     """A copy of uint32 wide rows [R, 128] with `offset` added to every occ
     column, the 40-bit sum split into the lo word and the row's WIDE_HI byte.
@@ -309,6 +367,7 @@ def fm_arrays(fm):
         sampled_sa=fm.sampled_sa, selected_rows=fm.selected_rows,
         selected_vals=fm.selected_vals, end_marker_sa=fm.end_marker_sa,
         rowmap=getattr(fm, "rowmap", None), bwt_codes=bwt.decode,
+        source_prefix=getattr(fm, "source_prefix", None),
         bwt_b=bwt.b, bwt_n=bwt.n,
         ind_words=bwt.indicator.words, ind_cum=bwt.indicator.cum,
         ind_n=bwt.indicator.n,
@@ -369,7 +428,7 @@ class TorchFM(nn.Module):
         self.ind = self.lit = self.run = None
         self.m_lit = self.m_run = 0
         if self.layout == "plain":
-            rows = build_wide_rows(fields["bwt_codes"]()).view(np.int32)
+            rows = serve_plain_rows(fields).view(np.int32)
         elif self.layout == "runblock":
             table, _, self.m_lit, self.m_run = build_mega_table(fields)
             mega = table.view(np.int32)

@@ -2,8 +2,10 @@
 """Native (C++) host components, loaded via ctypes with on-demand compilation.
 
   sais.cpp        linear-time SA-IS suffix sort (offline index build)
+  fastqpack.cpp   one-pass FASTQ parse + 2-bit pack (the bulk FASTQ producer,
+                  io/fastq_fast.py)
 
-The shared library is written into a git-ignored build directory beside this
+Each shared library is written into a git-ignored build directory beside this
 package (native/_build/), never next to the source.
 """
 

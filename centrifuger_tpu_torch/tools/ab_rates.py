@@ -5,9 +5,11 @@ by default, indexed with the port's builder) and its 65,536 read pairs once,
 then, for each checkout in the order given (for example parent, change,
 change, parent), in a process of its own that imports only that checkout:
 builds its kernels, classifies the reads through its CLI (pairs/s, index load
-included) and runs its chip_smoke.engine_rates (the steady-state engine rate,
-device busy time and idle share of one profiled pass) on the same index.  The
-TSV's digest shows that every checkout gave the same output.
+included), then their read 1 single-end through its CLI (reads/s: the bulk
+FASTQ route where the checkout has one), and runs its chip_smoke.engine_rates
+(the steady-state engine rate, device busy time and idle share of one
+profiled pass) on the same index.  The TSVs' digests show that every checkout
+gave the same output.  The card's name and power limit are printed first.
 
   python3 centrifuger_tpu_torch/tools/ab_rates.py TREE [TREE ...] [--db-nt N]
       [--seed S] [--out DIR]
@@ -36,13 +38,15 @@ def child(tree, work, out, label):
     kernels.build_all()
     prefix, reads = os.path.join(work, "main", "db"), os.path.join(work, "main")
     with open(os.devnull, "w") as log:
-        t0 = time.time()
-        tsv, _ = cs.classify(prefix, reads, ["--batch-size", str(cs.BATCH_PAIRS)], log)
-        wall = time.time() - t0
-    cs.say("%s: %d pairs in %.2f s through the CLI (index load included): %.0f read "
-           "pairs/s; TSV sha1 %s"
-           % (label, cs.N_PAIRS, wall, cs.N_PAIRS / wall,
-              hashlib.sha1(tsv.encode()).hexdigest()[:16]))
+        for paired, unit in ((True, "read pairs"), (False, "single-end reads")):
+            t0 = time.time()
+            tsv, _ = cs.classify(prefix, reads, ["--batch-size", str(cs.BATCH_PAIRS)], log,
+                                 paired)
+            wall = time.time() - t0
+            cs.say("%s: %d %s in %.2f s through the CLI (index load included): %.0f "
+                   "%s/s; TSV sha1 %s"
+                   % (label, cs.N_PAIRS, unit, wall, cs.N_PAIRS / wall, unit,
+                      hashlib.sha1(tsv.encode()).hexdigest()[:16]))
     eng = cs.make_engine(prefix)
     cs.engine_rates(label, eng, cs.read_batches(reads), cs.N_PAIRS,
                     "profile_%s.txt" % label.replace(" ", "_"))
@@ -68,6 +72,9 @@ def main():
     os.makedirs(args.out, exist_ok=True)
     cs.WORK, cs.OUT = work, args.out
     try:
+        cs.say(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip())
         t0 = time.time()
         cs.make_database("main", args.db_nt, args.seed)
         cs.say("main database of %d nt and its reads made and indexed in %.1f s"

@@ -12,6 +12,12 @@ checkout and holds every kernel to its plain PyTorch twin:
   E     the non-fused engine (--engine jax), long reads and -k 0
   F     the main index served sharded (--shards N, K10), and the data-parallel
         step (classify_dp_step, K11)
+  G     the main reads' read 1 single-end through the bulk FASTQ route (native
+        parse and pack), with and without the wide-row cache file
+  H     the read-prep flags (barcodes, UMIs, --read-format, --un / --cl,
+        --merge-readpair, a sample sheet)
+  I     --n-ranks 2 and cfr-merge-shards-torch
+  J     a reference-built .cfr index
   K12   the dependent-gather microbenchmark (tools/micro_gather.py)
 
 Phases (any failure exits non-zero and prints no result):
@@ -60,6 +66,21 @@ Phases (any failure exits non-zero and prints no result):
      code lanes of 128 over [cuda:0] and over [cuda:0, cuda:0], and from a
      host index's replica on cuda:0, equal to each other and to the plain
      versions.
+  G. the main index with the 65,536 read 1 records single-end (-u) through
+     the CLI's bulk route twice: first with no <prefix>.serve_plain_w.npz
+     (the run builds the wide rows and writes the file), then from the file;
+     then the same file on stdin (-u -), which takes the object route; the
+     three TSVs equal; each run's index-load seconds.
+  H. the first 8,192 pairs of main with seeded barcode and UMI reads (a
+     whitelist, 1-bp errors), --read-format and --un / --cl; with mates
+     rewritten to overlap read 1 and --merge-readpair; cut into a two-sample
+     --sample-sheet: each run's TSV, dumps and per-sample files equal to the
+     same run with --device cpu.
+  I. --n-ranks 2 (each rank through the CLI with its --rank-index) merged by
+     cfr-merge-shards-torch, equal to the single run: the 65,536 pairs (the
+     main path's TSV) and the bulk route's reads (path G's TSV).
+  J. tests/fixtures/tiny/refidx (.cfr) on the card: golden_class_k1.tsv,
+     and no cache file written beside it.
   K12. the dependent-gather microbenchmark through its driver, then its
      kernel against its twin.
      Each path's run is its reads through the CLI, then the public rank,
@@ -409,24 +430,41 @@ def make_database(kind, size, seed):
         json.dump({"data_s": t1 - t0, "build_s": time.time() - t1}, f)
 
 
+LOAD_S = []   # index-load seconds of each classify() run (load_index + the classifier)
+
+
 def classify(prefix, reads_dir, extra, log, paired=True, **make_kw):
     """The port's CLI entry in-process; returns (TSV text, (fast units,
-    fallback units)).  make_kw goes to the make_classifier the CLI calls
-    (force_idtype="int64": the CLI's classifier with that index type;
-    shard_devices)."""
+    fallback units)).  reads_dir None: the read arguments are in extra.
+    make_kw goes to the make_classifier the CLI calls (force_idtype="int64":
+    the CLI's classifier with that index type; shard_devices).  Appends the
+    run's index-load seconds (the index files read, the tables built or read
+    from the wide-row cache and uploaded) to LOAD_S."""
     from centrifuger_tpu_torch.cli import classify_cli
-    rargs = (["-1", os.path.join(reads_dir, "reads_1.fq"),
-              "-2", os.path.join(reads_dir, "reads_2.fq")] if paired
-             else ["-u", os.path.join(reads_dir, "reads_1.fq")])
+    rargs = [] if reads_dir is None else \
+        (["-1", os.path.join(reads_dir, "reads_1.fq"),
+          "-2", os.path.join(reads_dir, "reads_2.fq")] if paired
+         else ["-u", os.path.join(reads_dir, "reads_1.fq")])
     buf, err = io.StringIO(), io.StringIO()
-    make = classify_cli.make_classifier
-    if make_kw:
-        classify_cli.make_classifier = functools.partial(make, **make_kw)
+    make, load = classify_cli.make_classifier, classify_cli.load_index
+    spent = [0.0]
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[0] += time.time() - t0
+        return run
+    classify_cli.make_classifier = timed(functools.partial(make, **make_kw))
+    classify_cli.load_index = timed(load)
     try:
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             rc = classify_cli.main(["-x", prefix] + rargs + extra)
     finally:
-        classify_cli.make_classifier = make
+        classify_cli.make_classifier, classify_cli.load_index = make, load
+    LOAD_S.append(spent[0])
     log.write(err.getvalue())
     if rc != 0:
         fail("classify_cli returned %r" % rc)
@@ -661,6 +699,182 @@ def run_path(name, label, prefix, reads_dir, extra, n_pairs, expect, log, paired
         fail("%s: a launch of the sharded path was not a plain_sharded instantiation: %s"
              % (name, launches))
     return tsv, launches
+
+
+def outputs(d):
+    """{file name: bytes} of a run's output directory, gzip files read
+    through."""
+    import gzip
+    got = {}
+    for name in sorted(os.listdir(d)):
+        with (gzip.open if name.endswith(".gz") else open)(os.path.join(d, name), "rb") as f:
+            got[name] = f.read()
+    return got
+
+
+def phase_bulk(prefix, reads_dir, log):
+    """Path G: the main reads' read 1 single-end through the CLI's bulk FASTQ
+    route (native parse and pack on the producer thread), with no wide-row
+    cache file (the run builds and writes it) and then with it; then the same
+    file on stdin, which the bulk route refuses: the object route.  The
+    three TSVs must be equal.  Returns the bulk TSV."""
+    from centrifuger_tpu_torch.fm.device import SERVE_CACHE_SUFFIX
+    cache = prefix + SERVE_CACHE_SUFFIX
+    if os.path.exists(cache):
+        os.remove(cache)
+    expect = ["chain_search:plain", "finalize_units:plain"]
+    got, loads = {}, {}
+    for name in ("cold", "warm"):
+        got[name], _ = run_path("bulk route, %s wide-row cache" % name, "path G", prefix,
+                                reads_dir, [], N_PAIRS, expect, log, paired=False)
+        loads[name] = LOAD_S[-1]
+        if not os.path.exists(cache):
+            fail("path G: the %s run left no wide-row cache file" % name)
+    with open(os.path.join(reads_dir, "reads_1.fq")) as f:
+        stdin, sys.stdin = sys.stdin, f
+        try:
+            got["object"], _ = run_path("object route (-u -, stdin)", "path G", prefix, None,
+                                        ["-u", "-"], N_PAIRS, expect, log, paired=False)
+        finally:
+            sys.stdin = stdin
+        loads["object"] = LOAD_S[-1]
+    if not got["cold"] == got["warm"] == got["object"]:
+        fail("path G: the bulk route's TSVs (cold, warm cache) and the object route's differ")
+    say("path G: index load %.2f s with no cache file (rows built and written), %.2f s "
+        "from the cache, %.2f s for the object route's run; the three TSVs identical "
+        "(%d lines)" % (loads["cold"], loads["warm"], loads["object"],
+                        got["cold"].count("\n")))
+    return got["cold"]
+
+
+def write_read_prep(k0_dir, d, seed):
+    """Path H's inputs from the first K0_PAIRS pairs of main: seeded barcode
+    reads (16 bp from a 96-barcode whitelist, a 1-bp error in 30% of them)
+    and UMI reads (10 bp), the whitelist, mates rewritten to overlap their
+    read 1 in half of the pairs (the reverse complement of read 1 from a
+    random offset of 0-40: read-through pairs for --merge-readpair), and
+    the pairs cut into two samples with their sheet."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = bytes.maketrans(b"ACGTN", b"TGCAN")
+    os.makedirs(d)
+    whitelist = [acgt[rng.integers(0, 4, 16)].tobytes() for _ in range(96)]
+    with open(os.path.join(d, "whitelist.txt"), "wb") as f:
+        f.write(b"\n".join(whitelist) + b"\n")
+    with open(os.path.join(d, "bc.fq"), "wb") as fb, open(os.path.join(d, "um.fq"), "wb") as fu:
+        for i in range(K0_PAIRS):
+            bc = bytearray(whitelist[rng.integers(0, len(whitelist))])
+            if rng.random() < 0.3:
+                bc[rng.integers(0, 16)] = acgt[rng.integers(0, 4)]
+            fb.write(b"@b%07d\n%s\n+\n%s\n" % (i, bytes(bc), np.frombuffer(
+                b"#5?I", np.uint8)[rng.integers(0, 4, 16)].tobytes()))
+            fu.write(b"@u%07d\n%s\n+\n%s\n" % (i, acgt[rng.integers(0, 4, 10)].tobytes(),
+                                               b"I" * 10))
+    with open(os.path.join(k0_dir, "reads_1.fq"), "rb") as f1, \
+            open(os.path.join(k0_dir, "reads_2.fq"), "rb") as f2, \
+            open(os.path.join(d, "merge_2.fq"), "wb") as out:
+        for _ in range(K0_PAIRS):
+            r1 = [f1.readline() for _ in range(4)]
+            r2 = [f2.readline() for _ in range(4)]
+            if rng.random() < 0.5:
+                mate = r1[1].strip()[rng.integers(0, 41):].translate(comp)[::-1]
+                r2 = [r2[0], mate + b"\n", b"+\n", b"I" * len(mate) + b"\n"]
+            out.writelines(r2)
+    half = K0_PAIRS // 2
+    for name in ("reads_1.fq", "reads_2.fq"):
+        with open(os.path.join(k0_dir, name), "rb") as f:
+            lines = f.readlines()
+        for k, part in enumerate((lines[:4 * half], lines[4 * half:])):
+            with open(os.path.join(d, "s%d_%s" % (k + 1, name)), "wb") as g:
+                g.writelines(part)
+
+
+def phase_read_prep(prefix, k0_dir, log, seed):
+    """Path H: the read-prep flags on the card, each run's TSV, dumps and
+    per-sample files held to the same run with --device cpu."""
+    d = os.path.join(WORK, "read_prep")
+    write_read_prep(k0_dir, d, seed)
+    r1, r2 = os.path.join(k0_dir, "reads_1.fq"), os.path.join(k0_dir, "reads_2.fq")
+    runs = [
+        ("barcodes, UMIs, whitelist, --read-format, --un / --cl",
+         ["-1", r1, "-2", r2, "--barcode", os.path.join(d, "bc.fq"),
+          "--UMI", os.path.join(d, "um.fq"),
+          "--barcode-whitelist", os.path.join(d, "whitelist.txt"),
+          "--read-format", "r1:0:89,r2:5:-1", "--un", "{out}/un", "--cl", "{out}/cl"]),
+        ("--merge-readpair", ["-1", r1, "-2", os.path.join(d, "merge_2.fq"),
+                              "--merge-readpair"]),
+        ("two-sample --sample-sheet", ["--sample-sheet", "{out}/sheet.tsv"]),
+    ]
+    expect = ["chain_search:plain", "finalize_units:plain"]
+    for i, (name, args) in enumerate(runs):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(d, "%s_%d" % (dev, i))
+            os.makedirs(out)
+            with open(os.path.join(out, "sheet.tsv"), "w") as f:
+                f.write("".join("%s %s . . %s\n" % (
+                    os.path.join(d, "s%d_reads_1.fq" % k), os.path.join(d, "s%d_reads_2.fq" % k),
+                    os.path.join(out, "sample%d.tsv" % k)) for k in (1, 2)))
+            argv = [a.replace("{out}", out) for a in args]
+            t0 = time.time()
+            if dev == "cuda":
+                tsv, _ = run_path(name, "path H", prefix, None, argv, K0_PAIRS, expect, log)
+            else:
+                tsv, _ = classify(prefix, None, argv + ["--device", "cpu",
+                                                        "--batch-size", str(BATCH_PAIRS)], log)
+            files = outputs(out)
+            files.pop("sheet.tsv")
+            got[dev] = (tsv, files, time.time() - t0)
+        if got["cuda"][:2] != got["cpu"][:2]:
+            fail("path H: %s: the card's output differs from the cpu run's" % name)
+        tsv, files, _ = got["cuda"]
+        say("path H: %s: TSV (%d lines) and %s identical on cuda and cpu (cpu run %.1f s)"
+            % (name, tsv.count("\n"), ", ".join("%s %d bytes" % (k, len(v))
+                                               for k, v in files.items()) or "no files",
+               got["cpu"][2]))
+
+
+def phase_multihost(prefix, reads_dir, want, log):
+    """Path I: --n-ranks 2, each rank's run through the CLI with its
+    --rank-index, and cfr-merge-shards-torch: the merged TSV must equal the
+    single run's, on the paired object route and on the bulk route."""
+    from centrifuger_tpu_torch.cli import merge_cli
+    expect = ["chain_search:plain", "finalize_units:plain"]
+    r1, r2 = os.path.join(reads_dir, "reads_1.fq"), os.path.join(reads_dir, "reads_2.fq")
+    for route, reads in (("paired", ["-1", r1, "-2", r2]), ("bulk", ["-u", r1])):
+        argv = ["-o", os.path.join(WORK, "merged_%s.tsv" % route)]
+        for r in range(2):
+            idx = os.path.join(WORK, "rank%d_%s.idx" % (r, route))
+            tsv, _ = run_path("%s --n-ranks 2 --rank %d" % (route, r), "path I", prefix, None,
+                              reads + ["--n-ranks", "2", "--rank", str(r), "--rank-index", idx],
+                              N_PAIRS // 2, expect, log, paired=route == "paired")
+            path = os.path.join(WORK, "rank%d_%s.tsv" % (r, route))
+            with open(path, "w") as f:
+                f.write(tsv)
+            argv += ["--shard", path, idx]
+        if merge_cli.main(argv) != 0:
+            fail("path I: cfr-merge-shards-torch failed")
+        with open(argv[1]) as f:
+            if f.read() != want[route]:
+                fail("path I: the merged %s TSV differs from the single run's" % route)
+        say("path I: %s: two ranks merged by cfr-merge-shards-torch equal the single run "
+            "(%d lines)" % (route, want[route].count("\n")))
+
+
+def phase_cfr(log):
+    """Path J: the checked-in reference-built tiny index (.cfr) on the card:
+    the golden TSV, and no wide-row cache written beside it."""
+    from centrifuger_tpu_torch.fm.device import SERVE_CACHE_SUFFIX
+    prefix = os.path.join(FX, "tiny", "refidx")
+    tsv, _ = run_path(".cfr index", "path J", prefix, os.path.join(FX, "tiny"), [], 60,
+                      ["chain_search:plain", "finalize_units:plain"], log)
+    with open(os.path.join(FX, "tiny", "golden_class_k1.tsv")) as f:
+        if tsv != f.read():
+            fail("path J: the .cfr index's TSV differs from golden_class_k1.tsv")
+    if os.path.exists(prefix + SERVE_CACHE_SUFFIX):
+        fail("path J: a wide-row cache was written beside a reference-built index")
+    say("path J: tests/fixtures/tiny/refidx (.cfr) on cuda: golden_class_k1.tsv byte for "
+        "byte; no cache file written beside it")
 
 
 def engine_rates(label, eng, bq, n_pairs, profile_name):
@@ -1249,6 +1463,10 @@ def main():
             db_procs[kind].start()
         secs = kernels.build_all()
         say("phase 2: kernels built in %.1f s" % secs)
+        t0 = time.time()
+        from centrifuger_tpu_torch import native
+        native.load("fastqpack")
+        say("phase 2: native FASTQ packer built in %.1f s" % (time.time() - t0))
         for k, text in kernels.BUILD_LOG.items():
             log.write("---- nvcc %s\n%s\n" % (k, text))
 
@@ -1382,6 +1600,16 @@ def main():
             say("path F: one CUDA device (torch.cuda.device_count() == 1): the run of "
                 "--shards 2 over two cards with peer access was not possible here")
         say("path F: runs took %.1f s" % (time.time() - t_f))
+
+        # paths G-J: the bulk FASTQ route and the wide-row cache, the
+        # read-prep flags, multi-host striping, a reference-built index
+        t_g = time.time()
+        tsv["bulk"] = phase_bulk(prefixes["main"], dirs["main"], log)
+        phase_read_prep(prefixes["main"], dirs["k0"], log, args.seed + 3)
+        phase_multihost(prefixes["main"], dirs["main"],
+                        {"paired": tsv["main"], "bulk": tsv["bulk"]}, log)
+        phase_cfr(log)
+        say("paths G-J took %.1f s" % (time.time() - t_g))
         recs_k12 = phase_dep_gather(args.seed)
 
         # rates, device busy and idle share, kernel records: one engine a path.

@@ -139,13 +139,27 @@ def test_read_over_l_max(tmp_path_factory):
     assert port.stats["fast_units"] + port.stats["slow_units"] == 2
 
 
-@pytest.mark.parametrize("flag", [["--barcode-whitelist", "w.txt"],
-                                  ["--UMI", "u.fq"], ["--merge-readpair"],
-                                  ["--read-format", "r1:0:-1"], ["--un", "x"],
-                                  ["--barcode", "b.fq"], ["--sample-sheet", "s.tsv"]])
-def test_unported_flags_exit_naming_the_slice(tmp_path_factory, flag, capsys):
-    from centrifuger_tpu_torch.cli import classify_cli
-    with pytest.raises(SystemExit) as e:
-        classify_cli.main(["-x", "unused", "-u", "r.fq"] + flag)
-    assert e.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
+@pytest.mark.parametrize("flag", [["--barcode-whitelist", "{wl}"],
+                                  ["--UMI", "{umi}"], ["--merge-readpair"],
+                                  ["--read-format", "r1:0:-1"], ["--un", "{out}/x"],
+                                  ["--barcode", "{bc}"], ["--sample-sheet", "{sheet}"]])
+def test_read_prep_flags_match_jax_cli(tmp_path_factory, tmp_path, flag):
+    """Each read-prep flag alone on the tiny pairs (a sample sheet of two
+    samples of them): the port's TSV, dumps and per-sample files equal the
+    JAX CLI's byte for byte."""
+    from test_torch_cli_features import (PAIRED, make_read_prep_files, outputs, run_jax,
+                                         run_port, sheet_for)
+    prefix = port_index("tiny", tmp_path_factory)
+    files = make_read_prep_files(tmp_path_factory.mktemp("flags"))
+    res = []
+    for name, run in (("jax", run_jax), ("port", run_port)):
+        d = tmp_path / name
+        d.mkdir()
+        if flag[0] == "--sample-sheet":
+            args = ["--sample-sheet", sheet_for(files, d)]
+        else:
+            args = PAIRED + [a.replace("{out}", str(d)).format(**files) for a in flag]
+        tsv = run(prefix, args)
+        res.append((tsv, {k: v for k, v in outputs(d).items() if k != "sheet.tsv"}))
+    assert res[1] == res[0]
+    assert res[0][0] or len(res[0][1]) >= 2   # a TSV, or the two samples' files

@@ -339,9 +339,9 @@ def test_cli_rounds_the_batch_to_the_shards(tmp_path_factory, monkeypatch):
     batch_queries = classify_cli._batch_queries
     make = classify_cli.make_classifier
 
-    def spy_batch(batch):
+    def spy_batch(batch, *rest):
         sizes.append(len(batch))
-        return batch_queries(batch)
+        return batch_queries(batch, *rest)
 
     def spy_make(*a, **k):
         made.append(k["shards"])
