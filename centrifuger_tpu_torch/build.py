@@ -152,41 +152,49 @@ def build_index(genome_files, taxonomy_file, name_table, conversion_table,
         row_map = len(codes) <= rowmap_max
     params.row_map = bool(row_map) and len(codes) < (1 << 31)
 
-    # Only the whole-text SA-IS path (native/sais.cpp) is ported; the
-    # memory-bounded chunked builder (--build-mem/--bmax/--dcv/-t > 1) comes
-    # in a later slice of the port.
+    # Two build paths:
+    #  * whole-text SA-IS (native/sais.cpp, linear time) — fastest when the
+    #    ~17 bytes/char working set fits in RAM;
+    #  * memory-bounded chunked build (fm/sa_external.py + native/
+    #    sa_chunked.cpp) honoring --build-mem/--bmax/--dcv/-t with
+    #    ~10%-granularity checkpoint/resume — the reference's FMBuilder
+    #    capability (compactds/FMBuilder.hpp:371-438,444-811). -t > 1 takes
+    #    it too, for the parallel sort; a missing toolchain raises.
     explicit_chunked = bool(build_mem) or bmax is not None or \
-        dcv is not None or threads > 1 or \
+        dcv is not None or \
         len(codes) > int(os.environ.get("CFR_CHUNKED_BUILD_THRESHOLD",
                                         1 << 30)) or \
         os.environ.get("CFR_CHUNKED_BUILD", "") == "1"
-    if explicit_chunked:
-        raise NotImplementedError(
-            "the chunked (memory-bounded) index builder is not ported yet "
-            "to centrifuger_tpu_torch; build with centrifuger_tpu or drop "
-            "--build-mem/--bmax/--dcv/-t")
-    # --checkpoint on the SA-IS path: persist the suffix array (the
-    # expensive stage) so an interrupted build resumes without re-sorting
-    precomputed_sa = None
-    ckpt_path = output_prefix + "_checkpoint.npz"
-    if checkpoint:
-        import hashlib
-        digest = hashlib.sha256(codes.tobytes()).hexdigest()[:16]
-        if os.path.exists(ckpt_path):
-            z = np.load(ckpt_path)
-            if str(z["digest"]) == digest:
-                precomputed_sa = z["sa"]
-                log("Resuming from checkpoint (suffix array cached).")
-        if precomputed_sa is None:
-            from .fm.suffix_array import suffix_array
-            precomputed_sa = suffix_array(codes, len(alphabet))
-            np.savez(ckpt_path, digest=digest, sa=precomputed_sa)
-            log("Checkpoint written after suffix sort.")
+    if explicit_chunked or threads > 1:
+        from .fm.builder import build_fm_streaming
+        fm = build_fm_streaming(
+            codes, genome_lens, genome_seqids, alphabet, params,
+            dcv=dcv or 4096, bmax=bmax or (1 << 24), threads=threads,
+            build_mem=build_mem,
+            checkpoint_prefix=output_prefix if checkpoint else None, log=log)
+    else:
+        # --checkpoint on the SA-IS path: persist the suffix array (the
+        # expensive stage) so an interrupted build resumes without re-sorting
+        precomputed_sa = None
+        ckpt_path = output_prefix + "_checkpoint.npz"
+        if checkpoint:
+            import hashlib
+            digest = hashlib.sha256(codes.tobytes()).hexdigest()[:16]
+            if os.path.exists(ckpt_path):
+                z = np.load(ckpt_path)
+                if str(z["digest"]) == digest:
+                    precomputed_sa = z["sa"]
+                    log("Resuming from checkpoint (suffix array cached).")
+            if precomputed_sa is None:
+                from .fm.suffix_array import suffix_array
+                precomputed_sa = suffix_array(codes, len(alphabet))
+                np.savez(ckpt_path, digest=digest, sa=precomputed_sa)
+                log("Checkpoint written after suffix sort.")
 
-    fm = build_fm(codes, genome_lens, genome_seqids, alphabet, params,
-                  precomputed_sa=precomputed_sa)
-    if checkpoint and os.path.exists(ckpt_path):
-        os.remove(ckpt_path)
+        fm = build_fm(codes, genome_lens, genome_seqids, alphabet, params,
+                      precomputed_sa=precomputed_sa)
+        if checkpoint and os.path.exists(ckpt_path):
+            os.remove(ckpt_path)
     log("FM index built; saving.")
 
     save_index(output_prefix, fm, tax, seq_length, protein)

@@ -83,9 +83,12 @@ def main(argv=None):
         bmax=args.bmax, dcv=args.dcv, threads=args.threads,
         row_map=False if args.no_row_map else None)
     if args.emit_cfr:
-        sys.stderr.write("--emit-cfr: the .cfr writer is not ported yet to "
-                         "centrifuger_tpu_torch; use centrifuger_tpu's cfr-build.\n")
-        return 1
+        if args.protein:
+            sys.stderr.write("--emit-cfr: protein (one-tree) layout not "
+                             "supported; skipping .cfr emission.\n")
+            return 1
+        from ..interop.cfr_write import save_cfr_index
+        save_cfr_index(fm, tax, seq_length, args.output)
     return 0
 
 

@@ -13,7 +13,7 @@ The run-block BWT is reconstructed by vectorized wavelet-tree decoding into
 our flat PackedSeq representation; all auxiliary tables (sampled SA seqids,
 ftab, selected rows, end markers) are copied verbatim, so a reference-built
 index drops into this framework with identical classification output.
-The writer (cfr_write.py, cfr-build --emit-cfr) is not ported yet.
+The writer is cfr_write.py (cfr-build-torch --emit-cfr).
 """
 
 import os

@@ -2,8 +2,11 @@
 """Native (C++) host components, loaded via ctypes with on-demand compilation.
 
   sais.cpp        linear-time SA-IS suffix sort (offline index build)
+  sa_chunked.cpp  difference-cover chunked SA builder (the memory-bounded
+                  build path, fm/sa_external.py)
   fastqpack.cpp   one-pass FASTQ parse + 2-bit pack (the bulk FASTQ producer,
                   io/fastq_fast.py)
+  tsvquant.cpp    one-pass classification-TSV ingest (quant/quantifier.py)
 
 Each shared library is written into a git-ignored build directory beside this
 package (native/_build/), never next to the source.

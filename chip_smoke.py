@@ -19,16 +19,25 @@ checkout and holds every kernel to its plain PyTorch twin:
   I     --n-ranks 2 and cfr-merge-shards-torch
   J     a reference-built .cfr index
   K12   the dependent-gather microbenchmark (tools/micro_gather.py)
+  L     the main DB through the chunked, memory-bounded builder
+        (cfr-build-torch -t 8 --build-mem 2G --bmax 4194304 --checkpoint
+        --emit-cfr) and the written .cfr index classified on the card
+  M     the downstream CLIs (cfr-quant-torch, cfr-kreport-torch,
+        cfr-promote-torch, cfr-inspect-torch) on the main path's TSV
 
 Phases (any failure exits non-zero and prints no result):
 
   1. the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels (one nvcc per source, in parallel); the three
-     synthetic databases are made and indexed meanwhile, one process each
+     synthetic databases are made and indexed meanwhile, one process each,
+     and a fourth process indexes the main DB's genomes again with the
+     chunked builder (path L); each build's seconds and peak RSS
   3. goldens on the card: the tests/fixtures indexes built by the port,
      classified by the port's CLI on cuda, byte-identical to the goldens
      (nucleotide with the plain and the runblock layout, with and without
-     --no-rowmap; tiny_protein)
+     --no-rowmap; tiny_protein); cfr-quant-torch (formats 0 and 3) on each
+     fixture's golden_class_k1.tsv, and cfr-kreport-torch and
+     cfr-promote-torch on tiny, byte-identical to their goldens
   4. the main path at size: a seeded synthetic DB (default 64 Mnt: 20
      genomes, every odd one a 3% mutant of the one before, with inverted
      repeats), built with the port's builder (rowmap included), and 65,536
@@ -83,6 +92,20 @@ Phases (any failure exits non-zero and prints no result):
      and no cache file written beside it.
   K12. the dependent-gather microbenchmark through its driver, then its
      kernel against its twin.
+  L. the chunked build of phase 2 (about 16 chunks of at most 2^22
+     suffixes, so the ~10% state checkpoint is written; the rowmap captured,
+     as its 12 bytes a symbol fit the budget): its .fm.npz and .rowmap.npz
+     arrays equal the main index's; its four .cfr files, copied to a prefix
+     of their own, read back through the port's reader (the main index's n,
+     first_isa, sampled SA, BWT and lengths; no rowmap) and classify the
+     first 8,192 main pairs on cuda to the head of the main path's TSV,
+     K1-K5 launched and K2 by LF walk; the .cfr write and read seconds.
+  M. the main path's 65,536-pair TSV through cfr-quant-torch -x main in
+     formats 0-3 (-c file, the native ingest, equal to -c -, the line
+     loop; each run's seconds), cfr-kreport-torch with and without --no-lca
+     (the root clade count plus the unclassified count make the TSV's
+     distinct read ids), cfr-promote-torch at genus and lca, and
+     cfr-inspect-torch with each of its six flags.
      Each path's run is its reads through the CLI, then the public rank,
      BackwardExtend and LF of the same index and layout at 4,096 rows, held
      to the host index.
@@ -160,6 +183,10 @@ N_LONG = 1024                         # path E: long single-end reads, 9-20 kbp
 LONG_LEN = (9000, 20000)
 K0_PAIRS = 8192                       # path E: -k 0 on the first pairs
 OFFSET = 5 * 2 ** 32 + 12345          # path D: the offset-rows constant O
+CHUNKED_BUILD = ["-t", "8", "--build-mem", "2G", "--bmax", "4194304", "--checkpoint",
+                 "--emit-cfr"]        # path L: the main DB through the chunked builder
+INSPECT_FLAGS = ("--summary", "--conversion-table", "--taxonomy-tree", "--name-table",
+                 "--size-table", "--index-size")
 AA_LETTERS = "ARNDCEQGHILKMFPSTWYV"   # codes 1..20 of the protein alphabet
 FX = os.path.join(REPO, "tests", "fixtures")
 CSRC = "centrifuger_tpu_torch/kernels/csrc/%s.cu"
@@ -403,12 +430,49 @@ def build(fx_dir, prefix, log, extra=()):
         fail("build_cli returned %r for %s" % (rc, prefix))
 
 
+def peak_rss_mb():
+    """Starts a thread that samples this process's resident set size from
+    /proc/self/statm every 20 ms; returns a function that gives the peak so
+    far in MB, or None where statm cannot be read.  Neither getrusage's
+    ru_maxrss (it survives the exec of a spawned child, which then reads its
+    parent's high-water mark) nor VmHWM (absent from the chip machine's
+    /proc) measures the child's own peak."""
+    import threading
+    page = os.sysconf("SC_PAGE_SIZE")
+    peak = [0]
+
+    def sample():
+        with open("/proc/self/statm") as f:
+            peak[0] = max(peak[0], int(f.read().split()[1]) * page)
+    try:
+        sample()
+    except (OSError, ValueError, IndexError):
+        return lambda: None
+
+    def run():
+        while True:
+            sample()
+            time.sleep(0.02)
+    threading.Thread(target=run, daemon=True).start()
+    return lambda: peak[0] / 2 ** 20
+
+
+def mb_text(mb):
+    return "not measured" if mb is None else "%.0f MB" % mb
+
+
 def make_database(kind, size, seed):
     """One synthetic database with its reads and index under WORK/<kind>
-    (run in a process of its own, beside the other two)."""
+    (run in a process of its own, beside the others).  Kind "chunked" is the
+    main DB's genomes again (the same seed), no reads, indexed by the chunked
+    builder with --emit-cfr (path L).  Writes times.json: the data and build
+    seconds, the .cfr write seconds, and the process's peak RSS after the
+    data and after the build (peak_rss_mb)."""
+    rss_mb = peak_rss_mb()
     d = os.path.join(WORK, kind)
     os.makedirs(d)
     t0 = time.time()
+    times = {}
     if kind == "protein":
         proteomes = make_proteomes(size, seed)
         write_protein_db(proteomes, d)
@@ -419,15 +483,30 @@ def make_database(kind, size, seed):
         if kind == "ftab12":
             genomes = genomes[:FTAB12_GENOMES]
         write_db(genomes, d)
-        write_reads(genomes, FTAB12_PAIRS if kind == "ftab12" else N_PAIRS, seed + 1, d)
+        if kind != "chunked":
+            write_reads(genomes, FTAB12_PAIRS if kind == "ftab12" else N_PAIRS, seed + 1, d)
         if kind == "main":
             write_long_reads(genomes, N_LONG, seed + 2, os.path.join(d, "long"))
-        extra = ["--ftabchars", "12"] if kind == "ftab12" else []
+        extra = {"ftab12": ["--ftabchars", "12"], "chunked": CHUNKED_BUILD}.get(kind, [])
+    if kind == "chunked":
+        from centrifuger_tpu_torch.interop import cfr_write
+        save = cfr_write.save_cfr_index
+
+        def timed_save(*a, **k):    # build_cli imports it when --emit-cfr runs
+            t = time.time()
+            save(*a, **k)
+            times["cfr_write_s"] = time.time() - t
+        cfr_write.save_cfr_index = timed_save
+    genomes = proteomes = None    # freed before the build: its peak is mostly its own
+    gc.collect()
     t1 = time.time()
+    times.update(data_s=t1 - t0, rss_data_mb=rss_mb())
     with open(os.path.join(OUT, "build_%s.txt" % kind), "w") as log:
         build(d, os.path.join(d, "db"), log, extra)
+    times.update(build_s=time.time() - t1 - times.get("cfr_write_s", 0.0),
+                 rss_peak_mb=rss_mb())
     with open(os.path.join(d, "times.json"), "w") as f:
-        json.dump({"data_s": t1 - t0, "build_s": time.time() - t1}, f)
+        json.dump(times, f)
 
 
 LOAD_S = []   # index-load seconds of each classify() run (load_index + the classifier)
@@ -473,6 +552,27 @@ def classify(prefix, reads_dir, extra, log, paired=True, **make_kw):
     if placed:
         say("  %s" % placed.group(0))
     return buf.getvalue(), (tuple(map(int, m.groups())) if m else None)
+
+
+def run_cli(main, argv, stdin_path=None):
+    """A host CLI's main in-process: (return code, stdout, stderr, seconds);
+    stdin_path is read as its standard input."""
+    out, err = io.StringIO(), io.StringIO()
+    old = sys.stdin
+    t0 = time.time()
+    try:
+        if stdin_path:
+            sys.stdin = open(stdin_path)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                rc = main(argv)
+            except SystemExit as e:
+                rc = e.code
+    finally:
+        if stdin_path:
+            sys.stdin.close()
+        sys.stdin = old
+    return rc, out.getvalue(), err.getvalue(), time.time() - t0
 
 
 def read_batches(reads_dir, paired=True):
@@ -616,6 +716,35 @@ def phase_goldens(log):
         say("phase 3: goldens %s k1/k2/k5 byte-identical on cuda%s"
             % (fx, "" if protein else
                " (plain; runblock with and without --no-rowmap)"))
+        say("phase 3: goldens %s: %s byte-identical" % (fx, ", ".join(cli_goldens(fx, prefix))))
+
+
+def cli_goldens(fx, prefix):
+    """The downstream CLIs' fixture goldens on the port's index of `fx`:
+    cfr-quant-torch on golden_class_k1.tsv (formats 0 and 3), and on tiny
+    cfr-kreport-torch and cfr-promote-torch.  Returns the files held."""
+    from centrifuger_tpu_torch.cli import kreport_cli, promote_cli, quant_cli
+    d = os.path.join(FX, fx)
+    runs = [("golden_quant_centrifuger.tsv", quant_cli.main,
+             ["-x", prefix, "-c", os.path.join(d, "golden_class_k1.tsv")]),
+            ("golden_quant_kreport.tsv", quant_cli.main,
+             ["-x", prefix, "-c", os.path.join(d, "golden_class_k1.tsv"),
+              "--output-format", "3"])]
+    if fx == "tiny":
+        runs += [("golden_kreport_script.tsv", kreport_cli.main,
+                  ["-x", prefix, os.path.join(d, "golden_class_k1.tsv")]),
+                 ("golden_kreport_nolca.tsv", kreport_cli.main,
+                  ["-x", prefix, "--no-lca", os.path.join(d, "golden_class_k5.tsv")]),
+                 ("golden_promote_genus.tsv", promote_cli.main,
+                  [prefix, os.path.join(d, "golden_class_k5.tsv"), "genus"]),
+                 ("golden_promote_lca.tsv", promote_cli.main,
+                  [prefix, os.path.join(d, "golden_class_k5.tsv"), "lca"])]
+    for name, main, argv in runs:
+        rc, out, _, _ = run_cli(main, argv)
+        with open(os.path.join(d, name)) as f:
+            if rc != 0 or out != f.read():
+                fail("golden %s %s differs (rc %r)" % (fx, name, rc))
+    return [name for name, _, _ in runs]
 
 
 def probe_index(prefix, serve_layout, force_idtype=None, n_probe=4096, shards=0):
@@ -875,6 +1004,116 @@ def phase_cfr(log):
         fail("path J: a wide-row cache was written beside a reference-built index")
     say("path J: tests/fixtures/tiny/refidx (.cfr) on cuda: golden_class_k1.tsv byte for "
         "byte; no cache file written beside it")
+
+
+def same_arrays(a, b):
+    za, zb = np.load(a), np.load(b)
+    return sorted(za.files) == sorted(zb.files) and \
+        all(np.array_equal(za[k], zb[k]) for k in za.files)
+
+
+def phase_chunked(prefixes, k0_dir, want, log):
+    """Path L: the main DB's genomes built by the chunked builder (phase 2,
+    CHUNKED_BUILD) give the main index's .fm.npz and .rowmap.npz arrays; its
+    four .cfr files, copied to a prefix of their own, load through the port's
+    reader (the main index's n, first_isa, sampled SA, BWT and lengths, no
+    rowmap) and classify the first K0_PAIRS pairs on the card to the head of
+    the main path's TSV, K2 by LF walk.  Returns the run's launches."""
+    from centrifuger_tpu_torch.build import load_index
+    from centrifuger_tpu_torch.interop.cfr import load_cfr_index
+    main, chunked = prefixes["main"], prefixes["chunked"]
+    for ext in (".fm.npz", ".rowmap.npz"):
+        if not os.path.exists(chunked + ext) or not same_arrays(main + ext, chunked + ext):
+            fail("path L: the chunked build's %s differs from the main index's" % ext)
+    say("path L: the chunked build's .fm.npz and .rowmap.npz arrays equal the main "
+        "(SA-IS) index's")
+    only = os.path.join(WORK, "cfr_only", "db")
+    os.makedirs(os.path.dirname(only))
+    for part in (1, 2, 3, 4):
+        shutil.copy("%s.%d.cfr" % (chunked, part), "%s.%d.cfr" % (only, part))
+    t0 = time.time()
+    fm, _, seq_length, meta = load_cfr_index(only)
+    load_s = time.time() - t0
+    ref, _, ref_lengths, _ = load_index(main)
+    if (fm.n, fm.first_isa, seq_length) != (ref.n, ref.first_isa, ref_lengths) or \
+            getattr(fm, "rowmap", None) is not None or \
+            not np.array_equal(np.asarray(fm.sampled_sa), np.asarray(ref.sampled_sa)) or \
+            not np.array_equal(fm.bwt.decode(), ref.bwt.decode()):
+        fail("path L: the .cfr index read back differs from the main index")
+    say("path L: .cfr read back through the port's reader in %.2f s (%d symbols, "
+        "sequence_type %s): n, first_isa, sampled SA, BWT and lengths equal the main "
+        "index's; no rowmap" % (load_s, fm.n, meta.get("sequence_type")))
+    del fm, ref
+    gc.collect()
+    tsv, launches = run_path(
+        ".cfr of the chunked build", "path L", only, k0_dir, [], K0_PAIRS,
+        ["chain_search:plain", "finalize_units:plain", "prefix_search:plain",
+         "resolve_rows:plain"], log)
+    if not want.startswith(tsv) or tsv.count("\n") != K0_PAIRS + 1:
+        fail("path L: the .cfr index's TSV is not the head of the main path's")
+    say("path L: the .cfr index's TSV equals the first %d pairs of the main path's "
+        "(LF-walk resolve; the CLI run's wall holds its own .cfr read and %.2f s of "
+        "device tables)" % (K0_PAIRS, LOAD_S[-1]))
+    return launches
+
+
+def phase_downstream(prefix, tsv_text):
+    """Path M: the downstream CLIs on the main path's TSV: cfr-quant-torch in
+    formats 0-3, the file (native ingest) against stdin (the line loop);
+    cfr-kreport-torch with and without --no-lca (the root clade plus the
+    unclassified count make the TSV's reads); cfr-promote-torch at genus and
+    lca; cfr-inspect-torch with each flag."""
+    from centrifuger_tpu_torch.build import load_index_tax_only
+    from centrifuger_tpu_torch.cli import inspect_cli, kreport_cli, promote_cli, quant_cli
+    path = os.path.join(WORK, "main.tsv")
+    with open(path, "w") as f:
+        f.write(tsv_text)
+    lines = tsv_text.splitlines()
+    reads = {line.split("\t", 1)[0] for line in lines[1:]}
+    for fmt in range(4):
+        a = run_cli(quant_cli.main, ["-x", prefix, "-c", path, "--output-format", str(fmt)])
+        b = run_cli(quant_cli.main, ["-x", prefix, "-c", "-", "--output-format", str(fmt)],
+                    stdin_path=path)
+        if a[0] != 0 or b[0] != 0 or a[1] != b[1] or a[1].count("\n") < 2:
+            fail("path M: cfr-quant-torch --output-format %d: the file and stdin runs "
+                 "differ or failed (rc %r / %r)" % (fmt, a[0], b[0]))
+        say("path M: cfr-quant-torch --output-format %d: -c file (native ingest) %.2f s, "
+            "-c - (line loop) %.2f s, identical (%d lines)"
+            % (fmt, a[3], b[3], a[1].count("\n")))
+    for extra in ([], ["--no-lca"]):
+        rc, out, _, secs = run_cli(kreport_cli.main, ["-x", prefix] + extra + [path])
+        rows = [line.split("\t") for line in out.splitlines()]
+        counts = {int(r[4]): int(r[1]) for r in rows if len(r) >= 6}
+        total = counts.get(0, 0) + counts.get(1, 0)
+        # --no-lca sums 1/numMatches a row: %d prints the float sum truncated
+        low = len(reads) - (1 if extra else 0)
+        if rc != 0 or not low <= total <= len(reads):
+            fail("path M: cfr-kreport-torch %s: root %d + unclassified %d against %d reads"
+                 % (extra, counts.get(1, 0), counts.get(0, 0), len(reads)))
+        say("path M: cfr-kreport-torch%s: %.2f s, %d lines; root %d + unclassified %d = "
+            "%d reads" % (" " + extra[0] if extra else "", secs, len(rows), counts.get(1, 0),
+                          counts.get(0, 0), len(reads)))
+    for level in ("genus", "lca"):
+        rc, out, _, secs = run_cli(promote_cli.main, [prefix, path, level])
+        got = out.splitlines()
+        if rc != 0 or not got or got[0] != lines[0] or \
+                {line.split("\t", 1)[0] for line in got[1:]} != reads or \
+                len(got) > len(lines) or (level == "lca" and len(got) != len(reads) + 1):
+            fail("path M: cfr-promote-torch %s: %d lines for %d reads (rc %r)"
+                 % (level, len(got), len(reads), rc))
+        say("path M: cfr-promote-torch %s: %.2f s, %d lines for %d reads"
+            % (level, secs, len(got) - 1, len(reads)))
+    tax, seq_length = load_index_tax_only(prefix)
+    want = {"--summary": len(seq_length),
+            "--conversion-table": tax.seq_cnt + tax.extra_seq_cnt,
+            "--taxonomy-tree": tax.node_cnt, "--name-table": tax.node_cnt}
+    for flag in INSPECT_FLAGS:
+        rc, out, err, secs = run_cli(inspect_cli.main, ["-x", prefix, flag])
+        n = (err if flag == "--index-size" else out).count("\n")
+        if rc != 0 or n != want.get(flag, n) or n == 0 or \
+                (flag == "--index-size" and n != 4):
+            fail("path M: cfr-inspect-torch %s: %d lines (rc %r)" % (flag, n, rc))
+        say("path M: cfr-inspect-torch %s: %.2f s, %d lines" % (flag, secs, n))
 
 
 def engine_rates(label, eng, bq, n_pairs, profile_name):
@@ -1453,11 +1692,12 @@ def main():
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()[0]
         say("phase 1: %s" % smi)
-        # the three databases: data and host index build, one process each,
-        # beside the kernel build and the goldens
+        # the three databases and path L's chunked build of the main one:
+        # data and host index build, one process each, beside the kernel
+        # build and the goldens
         mp = multiprocessing.get_context("spawn")
         for kind, size in (("main", args.db_nt), ("protein", args.db_aa),
-                           ("ftab12", args.db_nt)):
+                           ("ftab12", args.db_nt), ("chunked", args.db_nt)):
             db_procs[kind] = mp.Process(target=make_database,
                                         args=(kind, size, args.seed))
             db_procs[kind].start()
@@ -1482,9 +1722,24 @@ def main():
             with open(os.path.join(dirs[kind], "times.json")) as f:
                 times = json.load(f)
             say("phase 2: %s database: data written in %.1f s, index built in %.1f s "
-                "(rowmap: %s), %.1f s after the start"
+                "(rowmap: %s; peak RSS %s after the data, %s after the build, sampled "
+                "every 20 ms), %.1f s after the start"
                 % (kind, times["data_s"], times["build_s"],
-                   os.path.exists(prefixes[kind] + ".rowmap.npz"), time.time() - t_start))
+                   os.path.exists(prefixes[kind] + ".rowmap.npz"),
+                   mb_text(times["rss_data_mb"]), mb_text(times["rss_peak_mb"]),
+                   time.time() - t_start))
+            if kind == "chunked":
+                with open(os.path.join(OUT, "build_chunked.txt")) as f:
+                    build_log = f.read()
+                plan = re.search(r"chunk plan: (\d+) chunks", build_log)
+                ckpts = build_log.count("] checkpoint at chunk ")
+                if not plan or not ckpts or "cfr_write_s" not in times:
+                    fail("path L: the chunked build wrote no chunk plan, state checkpoint "
+                         "or .cfr files (chiprun_out/build_chunked.txt)")
+                say("phase 2: path L: %s (%s): %s chunks, %d state checkpoints; "
+                    ".cfr written in %.2f s" % (" ".join(CHUNKED_BUILD), re.search(
+                        r"build-mem \d+: using bmax=\d+", build_log).group(0),
+                        plan.group(1), ckpts, times["cfr_write_s"]))
         say("sizes: main %d nt; protein %d aa; ftab12 %d nt (ftab %d entries); %d / %d / "
             "%d read pairs" % (args.db_nt, args.db_aa,
                                args.db_nt // N_GENOMES * FTAB12_GENOMES, 4 ** 12,
@@ -1610,6 +1865,14 @@ def main():
                         {"paired": tsv["main"], "bulk": tsv["bulk"]}, log)
         phase_cfr(log)
         say("paths G-J took %.1f s" % (time.time() - t_g))
+
+        # paths L and M: the chunked build and its .cfr; the downstream CLIs
+        t_l = time.time()
+        launches["cfr_chunked"] = phase_chunked(prefixes, dirs["k0"], tsv["main"], log)
+        say("path L took %.1f s" % (time.time() - t_l))
+        t_m = time.time()
+        phase_downstream(prefixes["main"], tsv["main"])
+        say("path M took %.1f s" % (time.time() - t_m))
         recs_k12 = phase_dep_gather(args.seed)
 
         # rates, device busy and idle share, kernel records: one engine a path.
