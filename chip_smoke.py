@@ -24,6 +24,10 @@ checkout and holds every kernel to its plain PyTorch twin:
         --emit-cfr) and the written .cfr index classified on the card
   M     the downstream CLIs (cfr-quant-torch, cfr-kreport-torch,
         cfr-promote-torch, cfr-inspect-torch) on the main path's TSV
+  N     the succinct library (host code) at the main index's scale, its
+        sequences' rank held to rank_probe on the card
+  O     cfr-download-torch from a local mirror, then cfr-build-torch over two
+        downloaded genomes and classify on the card and on the CPU
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -106,6 +110,32 @@ Phases (any failure exits non-zero and prints no result):
      (the root clade count plus the unclassified count make the TSV's
      distinct read ids), cfr-promote-torch at genus and lca, and
      cfr-inspect-torch with each of its six flags.
+  N. rank_probe's rank and symbol of 65,536 seeded (symbol, row) queries of
+     the main BWT on the card (rows 0, first_isa and its neighbours, n - 1
+     among them; the FM's exclusive occ reconciled with them), then, in three
+     processes of their own beside path O and phase 6: SequencePlain,
+     SequenceWavelet (plain and Huffman shaped), SequenceRunLength and
+     SequenceHybrid over the 64 M-symbol BWT, each query's rank and access
+     equal the card's; a CompressedSuffixArray over the first genome with
+     sa= the native SA-IS suffix array (4,096 lookup and inverse against the
+     SA, 1,024 counts of 8-32-symbol patterns within 1 of numpy's k-mer
+     counts); a PerfectHash of 10^6 distinct 31-mers (a bijection onto
+     [0, n)); PartialSum over the sequence lengths (65,536 searches against
+     np.searchsorted), CompactMapper over the taxids, a Permutation of 10^6
+     with t = 8 (next, and 4,096 prev against np.argsort); HuffmanCode over
+     the BWT's symbol counts and Elias gamma / delta of its run lengths, each
+     a round trip of 10^6 values; TreeLOUDS, TreeBP and TreeDFUDS over a
+     random tree of 10^6 nodes held op by op to PlainTree at 10,000 nodes.
+     Each structure's build seconds and bytes an element.
+  O. a mirror of the NCBI paths (the refseq bacteria assembly summary with a
+     row per main DB genome and two the filters drop, each genome gzipped,
+     the taxdump); cfr-download-torch -P 4 refseq, the same with -f, and
+     taxonomy, its fetch copying from the mirror and urlopen replaced by one
+     that fails the path: the printed map equals the main DB's conversion
+     table, nodes.dmp and names.dmp the smoke's; cfr-build-torch over the
+     first two downloaded genomes with that map and taxonomy; the first
+     8,192 main pairs classified from it on the card and with --device cpu,
+     the two TSVs identical.  Each step's seconds.
      Each path's run is its reads through the CLI, then the public rank,
      BackwardExtend and LF of the same index and layout at 4,096 rows, held
      to the host index.
@@ -159,6 +189,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -187,6 +218,12 @@ CHUNKED_BUILD = ["-t", "8", "--build-mem", "2G", "--bmax", "4194304", "--checkpo
                  "--emit-cfr"]        # path L: the main DB through the chunked builder
 INSPECT_FLAGS = ("--summary", "--conversion-table", "--taxonomy-tree", "--name-table",
                  "--size-table", "--index-size")
+SUCCINCT_QUERIES = 65536              # path N: rank / access of the BWT, PartialSum searches
+CSA_QUERIES, CSA_PATTERNS = 4096, 1024  # path N: CSA lookup / inverse (and Permutation prev),
+                                      # counts of 8-32-symbol patterns
+N_KEYS = 1_000_000                    # path N: PerfectHash keys, Permutation, code round trips
+N_TREE, TREE_SAMPLE = 1_000_000, 10_000  # path N: tree nodes, nodes held op by op
+PERM_T = 8
 AA_LETTERS = "ARNDCEQGHILKMFPSTWYV"   # codes 1..20 of the protein alphabet
 FX = os.path.join(REPO, "tests", "fixtures")
 CSRC = "centrifuger_tpu_torch/kernels/csrc/%s.cu"
@@ -1116,6 +1153,426 @@ def phase_downstream(prefix, tsv_text):
         say("path M: cfr-inspect-torch %s: %.2f s, %d lines" % (flag, secs, n))
 
 
+def built(what, make, n_elems):
+    """make() timed (path N); says its build seconds and bytes an element."""
+    t0 = time.time()
+    obj = make()
+    secs = time.time() - t0
+    nb = obj.nbytes()
+    say("path N: %s built in %.2f s: %d bytes, %.4f bytes an element (%d elements)"
+        % (what, secs, nb, nb / n_elems, n_elems))
+    return obj
+
+
+def kmer_counts(text, pats):
+    """Occurrences of each pattern (lengths <= 32) as a window of text: the
+    text's 2-bit packed k-mers of each length, sorted, searched."""
+    lens = np.array([len(p) for p in pats])
+    out = np.zeros(len(pats), np.int64)
+    keys = np.zeros(len(text), np.uint64)
+    t = text.astype(np.uint64)
+    for m in range(1, int(lens.max()) + 1):
+        w = len(text) - m + 1
+        keys[:w] = (keys[:w] << np.uint64(2)) | t[m - 1:]
+        sel = np.flatnonzero(lens == m)
+        if len(sel):
+            s = np.sort(keys[:w])
+            pk = np.array([functools.reduce(lambda a, c: (a << 2) | int(c), pats[i], 0)
+                           for i in sel], np.uint64)
+            out[sel] = np.searchsorted(s, pk, "right") - np.searchsorted(s, pk, "left")
+    return out
+
+
+def succinct_oracle(prefix, seed, out_path):
+    """Path N's oracle of the sequences: rank_probe's rank and symbol of
+    seeded (symbol, row) queries of the main BWT on the card, written to
+    out_path for succinct_sequences.  rank_probe counts the BWT as stored (the
+    text's last character displaced to row first_isa), inclusive of the row,
+    as the library's rank does; the FM's occ is exclusive and adds one for
+    the last character up to first_isa, and is reconciled with it here."""
+    import torch
+    from centrifuger_tpu_torch import kernels
+    from centrifuger_tpu_torch.build import load_index
+    from centrifuger_tpu_torch.fm import device as fd
+    fm = load_index(prefix)[0]
+    n, fi = fm.n, fm.first_isa
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([[0, 1, fi - 1, fi, fi + 1, n - 1],
+                           rng.integers(0, n, SUCCINCT_QUERIES - 6)])
+    rows = np.clip(rows, 0, n - 1).astype(np.int64)
+    syms = rng.integers(0, fm.sigma, len(rows))
+    syms[:6] = fm.last_chr
+    dev_fm = fd.TorchFM.from_index(fm, "cuda")
+    kernels.reset_launches()
+    rank, sym = (t.long().cpu().numpy() for t in fd.rank_sym(
+        dev_fm, *(torch.from_numpy(a).to("cuda", dev_fm.idtype) for a in (syms, rows))))
+    launches = dict(kernels.LAUNCHES)
+    if not launches.get("rank_probe:plain"):
+        fail("path N: rank_probe never launched (%s)" % launches)
+    occ = fm.rank(syms, rows, inclusive=False)
+    if not np.array_equal(occ, rank - (sym == syms) + ((syms == fm.last_chr) & (rows <= fi))):
+        fail("path N: the FM's occ and rank_probe's inclusive rank do not reconcile")
+    np.savez(out_path, rows=rows, syms=syms, rank=rank, sym=sym)
+    say("path N: %d rank_probe rank / symbol queries of the main BWT (%d symbols) on the "
+        "card (launches %s); the FM's occ at those rows reconciled with them"
+        % (len(rows), n, launches))
+
+
+def succinct_process(lines_path, parts, ctx):
+    """Path N's parts (the names of succinct_* functions) in a process of
+    their own, their lines written to lines_path; ctx: prefix, db_nt, seed,
+    map_path, oracle_path (all parts share one seeded generator)."""
+    sys.path.insert(0, REPO)
+    ctx = types.SimpleNamespace(**ctx, rng=np.random.default_rng(ctx["seed"] + 5))
+    with open(lines_path, "w", buffering=1) as out, contextlib.redirect_stdout(out):
+        for part in parts:
+            t0 = time.time()
+            SUCCINCT_PARTS[part](ctx)
+            say("path N: %s took %.1f s" % (part, time.time() - t0))
+
+
+def main_bwt(prefix):
+    """(the main index's BWT as stored, sigma)."""
+    from centrifuger_tpu_torch.build import load_index
+    fm = load_index(prefix)[0]
+    return fm.bwt.decode(), fm.sigma
+
+
+def succinct_sequences(ctx):
+    """The five sequence kinds over the main BWT as stored: rank (inclusive)
+    and access at the oracle's rows, held to rank_probe's answers on the card
+    (succinct_oracle)."""
+    from centrifuger_tpu_torch.succinct import sequences
+    bwt, sigma = main_bwt(ctx.prefix)
+    z = np.load(ctx.oracle_path)
+    rows, syms, rank, sym = z["rows"], z["syms"], z["rank"], z["sym"]
+    for what, make in (
+            ("SequencePlain", lambda: sequences.SequencePlain(bwt, sigma)),
+            ("SequenceWavelet", lambda: sequences.SequenceWavelet(bwt, sigma)),
+            ("SequenceWavelet (Huffman shaped)",
+             lambda: sequences.SequenceWavelet(bwt, sigma, huffman=True)),
+            ("SequenceRunLength", lambda: sequences.SequenceRunLength(bwt, sigma)),
+            ("SequenceHybrid", lambda: sequences.SequenceHybrid(bwt, sigma))):
+        seq = built(what, make, len(bwt))
+        t0 = time.time()
+        got = np.empty(len(rows), np.int64)
+        for c in range(sigma):
+            m = syms == c
+            got[m] = seq.rank(c, rows[m])
+        if not np.array_equal(got, rank) or \
+                not np.array_equal(np.atleast_1d(seq.access(rows)), sym):
+            fail("path N: %s's rank or access disagrees with rank_probe on the card" % what)
+        say("path N: %s: %d rank and access queries equal rank_probe's (%.2f s)"
+            % (what, len(rows), time.time() - t0))
+        del seq
+        gc.collect()
+
+
+def succinct_csa(ctx):
+    """The CSA over the main DB's first genome, sa= the native SA-IS suffix
+    array: lookup and inverse held to the SA, count to numpy's k-mer counts
+    (within the cyclic rotation's 1)."""
+    from centrifuger_tpu_torch.fm.suffix_array import suffix_array
+    from centrifuger_tpu_torch.succinct.csa import CompressedSuffixArray
+    rng = ctx.rng
+    genome = make_genomes(ctx.db_nt, ctx.seed)[0]
+    text = genome.astype(np.int64)
+    t0 = time.time()
+    sa = suffix_array(genome, 4)
+    say("path N: suffix_array of the first genome (%d symbols, native SA-IS) in %.2f s"
+        % (len(text), time.time() - t0))
+    csa = built("CompressedSuffixArray (sample rate 16)",
+                lambda: CompressedSuffixArray(text, sa, sample_rate=16, sigma=4), len(text))
+    isa = np.empty_like(sa)
+    isa[sa] = np.arange(len(sa))
+    q = rng.integers(0, len(text), CSA_QUERIES)
+    t0 = time.time()
+    if [csa.lookup(int(i)) for i in q] != sa[q].tolist() or \
+            [csa.inverse(int(i)) for i in q] != isa[q].tolist():
+        fail("path N: the CSA's lookup or inverse disagrees with the suffix array")
+    t1 = time.time()
+    lens = rng.choice([8, 12, 16, 20, 24, 28, 32], CSA_PATTERNS)
+    starts = rng.integers(0, len(text) - 32, CSA_PATTERNS)
+    pats = [text[s:s + m] for s, m in zip(starts, lens)]
+    truth = kmer_counts(text, pats)
+    t2 = time.time()
+    got = np.array([csa.count(p) for p in pats])
+    if (np.abs(got - truth) > 1).any() or (truth < 1).any():
+        fail("path N: the CSA's count is off by more than the cyclic rotation's 1")
+    say("path N: CSA: %d lookup and %d inverse equal the suffix array and its inverse "
+        "(%.2f s); %d counts of 8-32-symbol patterns within 1 of numpy's k-mer counts (%d "
+        "exact; %.2f s, numpy %.2f s)" % (len(q), len(q), t1 - t0, len(pats),
+                                          int((got == truth).sum()), time.time() - t2,
+                                          t2 - t1))
+
+
+def succinct_hashing(ctx):
+    """A minimal perfect hash of N_KEYS distinct 31-mers of the main DB."""
+    from centrifuger_tpu_torch.succinct.hashing import PerfectHash
+    g = np.concatenate(make_genomes(ctx.db_nt, ctx.seed)[:2]).astype(np.uint64)
+    w = min(N_KEYS + N_KEYS // 4, len(g) - 30)
+    keys = np.zeros(w, np.uint64)
+    for k in range(31):
+        keys = (keys << np.uint64(2)) | g[k:k + w]
+    keys = np.unique(keys)
+    keys = keys[ctx.rng.permutation(len(keys))[:N_KEYS]]
+    if len(keys) < N_KEYS:
+        fail("path N: fewer than %d distinct 31-mers" % N_KEYS)
+    mph = built("PerfectHash of %d distinct 31-mers" % N_KEYS,
+                lambda: PerfectHash(keys), N_KEYS)
+    t0 = time.time()
+    if not np.array_equal(np.sort(mph.lookup(keys)), np.arange(N_KEYS)):
+        fail("path N: the PerfectHash is not a bijection onto [0, n)")
+    say("path N: PerfectHash: a bijection onto [0, %d) (lookup %.2f s)"
+        % (N_KEYS, time.time() - t0))
+
+
+def succinct_mapper(ctx):
+    """PartialSum over the main DB's sequence lengths, CompactMapper over its
+    taxids, a seeded Permutation of N_KEYS and its inverse."""
+    from centrifuger_tpu_torch.build import load_index_tax_only
+    from centrifuger_tpu_torch.succinct.mapper import CompactMapper, PartialSum
+    from centrifuger_tpu_torch.succinct.permutation import Permutation
+    rng = ctx.rng
+    seq_length = load_index_tax_only(ctx.prefix)[1]
+    lengths = np.array([seq_length[k] for k in sorted(seq_length)], np.int64)
+    ps = built("PartialSum of the %d sequence lengths" % len(lengths),
+               lambda: PartialSum(lengths), len(lengths))
+    cums = np.cumsum(lengths)
+    xs = rng.integers(0, int(cums[-1]), SUCCINCT_QUERIES)
+    if not np.array_equal(ps.search(xs), np.searchsorted(cums, xs, side="right")):
+        fail("path N: PartialSum.search disagrees with np.searchsorted")
+    with open(ctx.map_path) as f:
+        taxids = np.array(sorted({int(line.split("\t")[1]) for line in f}), np.int64)
+    cm = built("CompactMapper of the %d sequences' taxids" % len(taxids),
+               lambda: CompactMapper(taxids), len(taxids))
+    if not np.array_equal(cm.to_compact(taxids), np.arange(len(taxids))) or \
+            not np.array_equal(cm.to_orig(np.arange(len(taxids))), taxids) or \
+            cm.contains(np.setdiff1d(np.arange(taxids.max() + 1), taxids)).any():
+        fail("path N: CompactMapper does not map the taxids to [0, m) and back")
+    pi = rng.permutation(N_KEYS)
+    perm = built("Permutation of %d (t = %d)" % (N_KEYS, PERM_T),
+                 lambda: Permutation(pi, t=PERM_T), N_KEYS)
+    inv = np.argsort(pi)
+    q = rng.integers(0, N_KEYS, CSA_QUERIES)
+    t0 = time.time()
+    if not np.array_equal(perm.next(np.arange(N_KEYS)), pi) or \
+            [perm.prev(int(i)) for i in q] != inv[q].tolist():
+        fail("path N: the Permutation or its inverse disagrees with pi / np.argsort")
+    say("path N: %d PartialSum searches equal np.searchsorted; CompactMapper maps the "
+        "taxids to [0, %d) and back; Permutation next equals pi, %d prev equal np.argsort "
+        "(%.2f s)" % (len(xs), len(taxids), len(q), time.time() - t0))
+
+
+def succinct_codes(ctx):
+    """HuffmanCode over the BWT's symbol counts, a round trip of its first
+    N_KEYS symbols; Elias gamma and delta round trips of N_KEYS of its run
+    lengths."""
+    from centrifuger_tpu_torch.succinct import codes
+    bwt, sigma = main_bwt(ctx.prefix)
+    hc = codes.HuffmanCode(np.bincount(bwt, minlength=sigma))
+    change = np.flatnonzero(np.diff(bwt[:4 * N_KEYS].astype(np.int8)) != 0)
+    runs = np.diff(change)[:N_KEYS].astype(np.uint64)
+    for what, encode, decode, vals in (
+            ("HuffmanCode (lengths %s) of the first %d BWT symbols"
+             % (hc.lengths.tolist(), N_KEYS), hc.encode,
+             lambda e, v: hc.decode(e[0], e[1], len(v)), bwt[:N_KEYS].astype(np.int64)),
+            ("Elias gamma of %d BWT run lengths" % N_KEYS, codes.elias_gamma_encode,
+             lambda e, v: codes.elias_gamma_decode(e[0], e[2]), runs),
+            ("Elias delta of %d BWT run lengths" % N_KEYS, codes.elias_delta_encode,
+             lambda e, v: codes.elias_delta_decode(e[0], e[2]), runs)):
+        t0 = time.time()
+        enc = encode(vals)
+        t1 = time.time()
+        if len(vals) != N_KEYS or not np.array_equal(decode(enc, vals), vals):
+            fail("path N: %s does not round-trip" % what)
+        say("path N: %s: encoded in %.2f s, %.4f bits a value; decoded to the same values "
+            "in %.2f s" % (what, t1 - t0, enc[1] / len(vals), time.time() - t1))
+
+
+def succinct_trees(ctx):
+    """TreeLOUDS, TreeBP and TreeDFUDS over a seeded random tree of N_TREE
+    nodes, held op by op to PlainTree at TREE_SAMPLE nodes."""
+    from centrifuger_tpu_torch.succinct import trees
+    rng = ctx.rng
+    t0 = time.time()
+    plain = trees.PlainTree()
+    for p in rng.integers(0, np.arange(1, N_TREE)).tolist():
+        plain.add_node(p)
+    sample = rng.integers(0, N_TREE, TREE_SAMPLE).tolist()
+    say("path N: a seeded random PlainTree of %d nodes in %.2f s"
+        % (N_TREE, time.time() - t0))
+    for cls in (trees.TreeLOUDS, trees.TreeBP, trees.TreeDFUDS):
+        t = built(cls.__name__, lambda: cls.from_plain(plain), N_TREE)
+        ids = t.id_map
+        t0 = time.time()
+        for v in sample:
+            h = t.node_select(ids[v])
+            cc = plain.children_count(v)
+            ok = t.node_map(h) == ids[v] and t.children_count(h) == cc and \
+                t.child_rank(h) == plain.child_rank(v) and \
+                (v == 0 or t.node_map(t.parent(h)) == ids[plain.parent[v]]) and \
+                all(t.node_map(t.child_select(h, k)) == ids[plain.child_select(v, k)]
+                    for k in range(1, min(cc, 3) + 1)) and \
+                (not hasattr(t, "depth") or t.depth(h) == plain.depth(v)) and \
+                (not hasattr(t, "subtree_size") or t.subtree_size(h) == plain.subtree_size(v))
+            if not ok:
+                fail("path N: %s disagrees with PlainTree at node %d" % (cls.__name__, v))
+        say("path N: %s: parent, children_count, child_select, child_rank%s at %d nodes "
+            "equal PlainTree's (%.2f s)" % (cls.__name__, "".join(
+                ", " + op for op in ("depth", "subtree_size") if hasattr(t, op)),
+                TREE_SAMPLE, time.time() - t0))
+
+
+SUCCINCT_PARTS = {"sequences": succinct_sequences, "csa": succinct_csa,
+                  "hashing": succinct_hashing, "mapper": succinct_mapper,
+                  "codes": succinct_codes, "trees": succinct_trees}
+# path N's processes, each a few of the parts, beside path O and phase 6
+SUCCINCT_PROCS = (("sequences",), ("csa", "hashing", "mapper"), ("codes", "trees"))
+
+
+NCBI_HOSTS = ("ftp.ncbi.nlm.nih.gov", "ftp.ncbi.nih.gov")   # cfr-download's two hosts
+
+
+def write_mirror(m, genomes, db_dir):
+    """A local copy of the NCBI paths cfr-download reads: the refseq
+    bacteria assembly summary (a latest Complete Genome row per main DB
+    genome, taxid from the smoke's taxonomy, and two rows the filters drop),
+    each genome's <name>_genomic.fna.gz, and the taxonomy dump."""
+    import gzip
+    import tarfile
+    with open(os.path.join(db_dir, "ref_seqid.map")) as f:
+        taxid = dict(line.split() for line in f)
+
+    def row(i, status, level):
+        """(summary line, genome directory, file name stem) of assembly i."""
+        acc = "GCF_%09d.1" % (i + 1)
+        name = "%s_SynStrain%d" % (acc, i)
+        rel = "genomes/all/GCF/%s/%s/%s/%s" % (acc[4:7], acc[7:10], acc[10:13], name)
+        tax = taxid.get("SEQ_%06d" % i, "1")
+        line = "\t".join([acc, "PRJNA0", "SAMN0", "na", "representative genome", tax, tax,
+                          "Synthetic strain %d" % i, "strain=%d" % i, "", status, level,
+                          "Full", "Major", "2024/01/01", name, "smoke", "GCA_" + acc[4:],
+                          "identical", "https://%s/%s" % (NCBI_HOSTS[0], rel)]) + "\n"
+        return line, os.path.join(m, rel), name
+    rows = []
+    for i, g in enumerate(genomes):
+        line, d, name = row(i, "latest", "Complete Genome")
+        rows.append(line)
+        path = os.path.join(d, name + "_genomic.fna.gz")
+        os.makedirs(d)
+        write_fasta(path + ".fa", ["SEQ_%06d" % i], [g], "ACGT")
+        with open(path + ".fa", "rb") as src, gzip.open(path, "wb", compresslevel=1) as dst:
+            shutil.copyfileobj(src, dst, 1 << 24)
+        os.remove(path + ".fa")
+    # not in the mirror: fetching either fails the path
+    rows.append(row(len(genomes), "replaced", "Complete Genome")[0])
+    rows.append(row(len(genomes) + 1, "latest", "Contig")[0])
+    d = os.path.join(m, "genomes", "refseq", "bacteria")
+    os.makedirs(d)
+    with open(os.path.join(d, "assembly_summary.txt"), "w") as f:
+        f.write("# assembly_accession\tbioproject\tbiosample\t...\n")
+        f.writelines(rows)
+    os.makedirs(os.path.join(m, "pub", "taxonomy"))
+    with tarfile.open(os.path.join(m, "pub", "taxonomy", "taxdump.tar.gz"), "w:gz") as t:
+        for name in ("nodes.dmp", "names.dmp"):
+            t.add(os.path.join(db_dir, name), name)
+
+
+def phase_download(genomes, db_dir, reads_dir, log):
+    """Path O: cfr-download-torch against a local mirror (its fetch copies
+    from the mirror; urllib.request.urlopen raises and fails the path), then
+    cfr-build-torch over the first two downloaded genomes with the printed
+    map and the downloaded taxonomy, and K0_PAIRS main pairs classified from
+    it on the card and with --device cpu."""
+    import urllib.parse
+    import urllib.request
+    from centrifuger_tpu_torch.cli import build_cli, download_cli
+    label = "path O"
+    d = os.path.join(WORK, "download")
+    mirror, base = os.path.join(d, "mirror"), os.path.join(d, "lib")
+    t0 = time.time()
+    write_mirror(mirror, genomes, db_dir)
+    say("%s: mirror of %d genomes (gzip level 1), their assembly summary and taxdump "
+        "written in %.1f s" % (label, len(genomes), time.time() - t0))
+    fetched, opened = [], []
+
+    def fetch(url, dest=None, retries=3):
+        fetched.append(url)
+        parts = urllib.parse.urlsplit(url)
+        src = os.path.join(mirror, parts.path.lstrip("/"))
+        if parts.netloc not in NCBI_HOSTS or not os.path.isfile(src):
+            raise RuntimeError("Error downloading %s: not in the mirror" % url)
+        if dest is None:
+            with open(src, "rb") as f:
+                return f.read()
+        shutil.copyfile(src, dest)
+        return dest
+
+    def urlopen(*a, **k):
+        opened.append(a)
+        raise OSError("path O: urlopen called")
+    saved = download_cli.fetch, urllib.request.urlopen
+    download_cli.fetch, urllib.request.urlopen = fetch, urlopen
+    runs = {}
+    try:
+        for what, argv in (("map", ["-o", base, "-P", "4", "-d", "bacteria", "refseq"]),
+                           ("file map", ["-o", base, "-P", "4", "-d", "bacteria", "-f",
+                                         "refseq"]),
+                           ("taxonomy", ["-o", base, "taxonomy"])):
+            n0 = len(fetched)
+            rc, out, err, secs = run_cli(download_cli.main, argv)
+            log.write(err)
+            if rc != 0:
+                fail("path O: cfr-download-torch %s returned %r" % (" ".join(argv), rc))
+            runs[what] = out
+            say("%s: cfr-download-torch %s: %.2f s, %d files fetched from the mirror, %d "
+                "lines out" % (label, " ".join(argv[2:]), secs, len(fetched) - n0,
+                               out.count("\n")))
+    finally:
+        download_cli.fetch, urllib.request.urlopen = saved
+    if opened:
+        fail("path O: urllib.request.urlopen was called %d times" % len(opened))
+    with open(os.path.join(db_dir, "ref_seqid.map")) as f:
+        if runs["map"] != f.read():
+            fail("path O: the printed seqid-to-taxid map differs from the main DB's table")
+    files = [line.split("\t") for line in runs["file map"].splitlines()]
+    if len(files) != len(genomes) or any(not os.path.isfile(p) for p, _ in files):
+        fail("path O: -f printed %d files for %d genomes" % (len(files), len(genomes)))
+    for name in ("nodes.dmp", "names.dmp"):
+        with open(os.path.join(base, name), "rb") as a, \
+                open(os.path.join(db_dir, name), "rb") as b:
+            if a.read() != b.read():
+                fail("path O: the downloaded %s differs from the smoke's" % name)
+    say("%s: the printed map equals the main DB's conversion table; -f names the %d "
+        "downloaded files; nodes.dmp and names.dmp equal the smoke's; urlopen never called"
+        % (label, len(files)))
+    map_path = os.path.join(d, "seqid.map")
+    with open(map_path, "w") as f:
+        f.write(runs["map"])
+    prefix = os.path.join(d, "db")
+    t0 = time.time()
+    with contextlib.redirect_stderr(log):
+        rc = build_cli.main(["-r", files[0][0], "-r", files[1][0],
+                             "--taxonomy-tree", os.path.join(base, "nodes.dmp"),
+                             "--name-table", os.path.join(base, "names.dmp"),
+                             "--conversion-table", map_path, "-o", prefix])
+    if rc != 0:
+        fail("path O: cfr-build-torch over the downloaded genomes returned %r" % rc)
+    say("%s: cfr-build-torch of the first two downloaded genomes (%d symbols) in %.1f s"
+        % (label, sum(len(g) for g in genomes[:2]), time.time() - t0))
+    tsv, _ = run_path("downloaded genomes", label, prefix, reads_dir, [], K0_PAIRS,
+                      ["chain_search:plain", "finalize_units:plain"], log)
+    t0 = time.time()
+    cpu_tsv, _ = classify(prefix, reads_dir, ["--device", "cpu",
+                                              "--batch-size", str(BATCH_PAIRS)], log)
+    if cpu_tsv != tsv:
+        fail("path O: the card's TSV differs from the --device cpu run's")
+    say("%s: %d pairs: TSV (%d lines, %d pairs classified) identical on cuda and cpu "
+        "(cpu run %.1f s)" % (label, K0_PAIRS, tsv.count("\n"),
+                              K0_PAIRS - tsv.count("\tunclassified\t"), time.time() - t0))
+
+
 def engine_rates(label, eng, bq, n_pairs, profile_name):
     """Steady-state engine rate (second pass), then the device's busy time and
     idle share in one profiled pass."""
@@ -1687,6 +2144,7 @@ def main():
     log = open(os.path.join(OUT, "smoke_log.txt"), "w")
     sys.stdout = tee = Tee(sys.stdout, os.path.join(OUT, "smoke_stdout.txt"))
     db_procs = {}
+    succinct_procs = []
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
@@ -1873,6 +2331,25 @@ def main():
         t_m = time.time()
         phase_downstream(prefixes["main"], tsv["main"])
         say("path M took %.1f s" % (time.time() - t_m))
+
+        # path N: the card's oracle, then the succinct library (host code)
+        # in a process of its own beside path O and phase 6
+        succinct = os.path.join(WORK, "succinct")
+        os.makedirs(succinct)
+        t_n = time.time()
+        succinct_oracle(prefixes["main"], args.seed + 4, os.path.join(succinct, "oracle.npz"))
+        ctx = dict(prefix=prefixes["main"], db_nt=args.db_nt, seed=args.seed,
+                   map_path=os.path.join(dirs["main"], "ref_seqid.map"),
+                   oracle_path=os.path.join(succinct, "oracle.npz"))
+        for i, parts in enumerate(SUCCINCT_PROCS):
+            succinct_procs.append(mp.Process(target=succinct_process, args=(
+                os.path.join(succinct, "lines_%d.txt" % i), parts, ctx)))
+            succinct_procs[-1].start()
+        # path O: cfr-download-torch from a local mirror, then build and classify
+        t_o = time.time()
+        phase_download(make_genomes(args.db_nt, args.seed), dirs["main"], dirs["k0"], log)
+        say("path O took %.1f s" % (time.time() - t_o))
+        gc.collect()
         recs_k12 = phase_dep_gather(args.seed)
 
         # rates, device busy and idle share, kernel records: one engine a path.
@@ -2017,6 +2494,16 @@ def main():
         check_cpu_head("path E", "k0", prefixes["main"], dirs["k0"], tsv["k0"], ["-k", "0"],
                        log)
 
+        for i, proc in enumerate(succinct_procs):
+            proc.join()
+            with open(os.path.join(succinct, "lines_%d.txt" % i)) as f:
+                sys.stdout.write(f.read())
+            if proc.exitcode != 0:
+                fail("path N: the process of %s failed (exit code %r)"
+                     % (", ".join(SUCCINCT_PROCS[i]), proc.exitcode))
+        say("path N: its %d processes joined %.1f s after its oracle ran"
+            % (len(succinct_procs), time.time() - t_n))
+
         say("total %.1f s" % (time.time() - t_start))
         print(smi)
         print(json.dumps({"kernels": recs}))
@@ -2024,7 +2511,7 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
     finally:
-        for proc in db_procs.values():
+        for proc in [*db_procs.values(), *succinct_procs]:
             if proc.is_alive():
                 proc.terminate()
             proc.join()
