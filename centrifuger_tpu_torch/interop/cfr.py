@@ -10,7 +10,12 @@ SAVE_VAR/SAVE_ARR macros (compactds/Utils.hpp:67-71) for the four index files
   prefix.4.cfr  plaintext metadata
 
 The run-block BWT is reconstructed by vectorized wavelet-tree decoding into
-our flat PackedSeq representation; all auxiliary tables (sampled SA seqids,
+our flat PackedSeq representation, from either of the reference's layouts:
+Sequence_RunBlock (nucleotide: literal and run streams, two wavelet trees) or
+Sequence_RunBlockOneTree (protein: one wavelet tree over the mixed stream and
+per-symbol _alphabetRB bitvectors), chosen by the sequence_type of
+prefix.4.cfr; a one-tree decode is checked against the stored F column and
+ftab before it is served; all auxiliary tables (sampled SA seqids,
 ftab, selected rows, end markers) are copied verbatim, so a reference-built
 index drops into this framework with identical classification output.
 The writer is cfr_write.py (cfr-build-torch --emit-cfr).
@@ -74,7 +79,7 @@ def _read_alphabet(r):
     return out
 
 
-def _read_bitvector_plain(r):
+def _read_bitvector_plain(r, what="bitvector"):
     r.u64()  # Bitvector::_space
     n = r.u64()
     r.i32()  # _rb
@@ -94,7 +99,8 @@ def _read_bitvector_plain(r):
         sn = r.u64()
         speed = r.i32()
         if speed != 0 and sn != 0:
-            raise NotImplementedError("select directories in .cfr not supported")
+            raise NotImplementedError(
+                "select directories in .cfr not supported (%s)" % what)
     return n, words
 
 
@@ -165,8 +171,9 @@ def _read_fixed_array(r):
     return (vals * shifts[None, :]).sum(axis=1)
 
 
-def load_cfr_fm(path):
-    """Parse prefix.1.cfr into an FMIndexData."""
+def load_cfr_fm(path, protein=False):
+    """Parse prefix.1.cfr into an FMIndexData; protein selects the one-tree
+    BWT layout (the .4.cfr says amino_acid)."""
     with open(path, "rb") as f:
         r = _R(f.read())
     fm = FMIndexData()
@@ -178,12 +185,19 @@ def load_cfr_fm(path):
     # Sequence_RunBlock
     r.u64()  # Sequence::_space
     rb_n = r.u64()
-    _read_alphabet(r)  # runblock's own alphabet
+    rb_alpha = _read_alphabet(r)  # runblock's own alphabet
     b = r.u64()
     block_cnt = r.u64()
     ind_n, ind_words = _read_bitvector_plain(r)
-    lit_codes, lit_alpha = _read_wavelet(r)
-    run_codes, run_alpha = _read_wavelet(r)
+    if protein:
+        # Sequence_RunBlockOneTree: one _alphabetRB bitvector per symbol of
+        # the sequence's alphabet, then one wavelet tree over the mixed stream
+        alphabet_rb = [_read_bitvector_plain(r, "one-tree _alphabetRB[%d]" % c)
+                       for c in range(rb_alpha["n"])]
+        mixed_codes, _ = _read_wavelet(r)
+    else:
+        lit_codes, lit_alpha = _read_wavelet(r)
+        run_codes, run_alpha = _read_wavelet(r)
 
     alphabets = _read_alphabet(r)
     plain_coder = _read_alphabet(r)
@@ -220,7 +234,13 @@ def load_cfr_fm(path):
     # full BWT codes and re-split with the stored block size (the split rule is
     # deterministic, Sequence_RunBlock.hpp:249-269)
     ind_bits = _bits_from_words(ind_words, ind_n) if ind_n else np.zeros(0, bool)
-    bwt = _reconstruct_codes(n, b, ind_bits, lit_codes, run_codes)
+    if protein:
+        rb_bits = [_bits_from_words(w, bn) if bn else np.zeros(0, bool)
+                   for bn, w in alphabet_rb]
+        bwt = _reconstruct_codes_one_tree(n, b, ind_bits, mixed_codes, rb_bits)
+        _check_one_tree_counts(bwt, psum, path)
+    else:
+        bwt = _reconstruct_codes(n, b, ind_bits, lit_codes, run_codes)
     rbs = RunBlockSeq.from_codes(bwt, sigma, b=int(b) if b < n else 1)
 
     fm.n = int(n)
@@ -244,6 +264,8 @@ def load_cfr_fm(path):
         fm.selected_vals = sel[order, 1].astype(np.int64)
     fm.end_marker_sa = end_marker
     fm.bwt = rbs
+    if protein:
+        _check_one_tree_ftab(fm, pr, path)
     return fm
 
 
@@ -272,6 +294,105 @@ def _reconstruct_codes(n, b, ind_bits, lit_codes, run_codes):
             _concat_aranges(lit_sizes)
         out[out_positions] = lit_codes[:lit_sizes.sum()]
     return out
+
+
+def _reconstruct_codes_one_tree(n, b, ind_bits, mixed, alphabet_rb):
+    """Invert the one-tree split (Sequence_RunBlockOneTree): the mixed stream
+    holds, block by block, a literal block's codes and one code for a run
+    block; bit j of alphabet_rb[c] says whether the j-th c of the mixed stream
+    stands for a run block (bits past a bitvector's end read 0).  Those bits
+    must agree with the indicator, or the layout was misread: ValueError."""
+    n = int(n)
+    b = int(b)
+    if n == 0:
+        return np.zeros(0, dtype=np.uint8)
+    mixed = np.asarray(mixed, dtype=np.uint8)
+    block_cnt = (n + b - 1) // b
+    starts = np.arange(block_cnt, dtype=np.int64) * b
+    sizes = np.minimum(starts + b, n) - starts
+    is_run = np.zeros(block_cnt, dtype=bool)
+    is_run[:len(ind_bits)] = ind_bits[:block_cnt]
+    per_block = np.where(is_run, 1, sizes)
+    if int(per_block.sum()) != len(mixed):
+        raise ValueError("one-tree mixed stream holds %d codes, the indicator "
+                         "needs %d" % (len(mixed), int(per_block.sum())))
+    mixed_is_run = np.repeat(is_run, per_block)
+    # occurrence number of each mixed code among the codes equal to it
+    order = np.argsort(mixed, kind="stable")
+    counts = np.bincount(mixed, minlength=len(alphabet_rb))
+    if len(counts) > len(alphabet_rb):
+        raise ValueError("one-tree mixed stream has code %d past the %d "
+                         "_alphabetRB bitvectors" % (len(counts) - 1, len(alphabet_rb)))
+    flags = np.zeros(len(mixed), dtype=bool)
+    for c, bits in enumerate(alphabet_rb):
+        if len(bits) > counts[c]:
+            raise ValueError("one-tree _alphabetRB[%d] has %d bits for %d codes"
+                             % (c, len(bits), counts[c]))
+        start = int(counts[:c].sum())
+        flags[order[start:start + len(bits)]] = bits
+    if not np.array_equal(flags, mixed_is_run):
+        first = int(np.flatnonzero(flags != mixed_is_run)[0])
+        raise ValueError("one-tree _alphabetRB disagrees with the indicator at "
+                         "mixed position %d (code %d)" % (first, mixed[first]))
+    reps = np.repeat(np.where(is_run, sizes, 1), per_block)
+    return np.repeat(mixed, reps)
+
+
+# stored ftab rows that a one-tree load recomputes by backward search
+ONE_TREE_CHECK_ROWS = 256
+
+
+def _check_one_tree_counts(codes, psum, path):
+    """The first half of a one-tree load's gate: the decoded codes' symbol
+    counts must equal psum's differences (ValueError naming the file and the
+    first differing symbol)."""
+    want = np.diff(psum)
+    got = np.bincount(codes, minlength=len(want))
+    if len(got) != len(want) or not np.array_equal(got, want):
+        bad = len(want) if len(got) != len(want) else int(np.flatnonzero(got != want)[0])
+        raise ValueError("%s: the decoded one-tree BWT disagrees with psum at "
+                         "symbol %d" % (path, bad))
+
+
+def _check_one_tree_ftab(fm, pr, path):
+    """The second half: ONE_TREE_CHECK_ROWS stored ftab rows, drawn with a
+    fixed seed (three in four from the non-empty rows, the rest from the
+    whole table), must equal the backward search of their k-mer over the
+    served BWT (ValueError naming the file and the first differing row)."""
+    rows = len(pr)
+    if rows == 0:
+        return
+    rng = np.random.default_rng(0)
+    full = np.flatnonzero(pr[:, 1] > 0)
+    k = min(len(full), ONE_TREE_CHECK_ROWS * 3 // 4)
+    pick = np.concatenate([rng.choice(full, k, replace=False),
+                           rng.integers(0, rows, ONE_TREE_CHECK_ROWS - k)])
+    pick = np.unique(pick)
+    # k-mer characters, the first in the lowest code_bits (the ftab's order)
+    mask = (1 << fm.code_bits) - 1
+    chars = [(pick >> (fm.code_bits * j)) & mask for j in range(fm.precompute_width)]
+    valid = np.all([ch < fm.sigma for ch in chars], axis=0)
+    start = np.zeros(len(pick), np.int64)
+    length = np.zeros(len(pick), np.int64)
+    if valid.any():
+        cv = [np.where(valid, ch, 0) for ch in chars]
+        c = cv[-1]
+        sp, ep = fm.psum[c], fm.psum[c + 1] - 1
+        alive = valid & (sp <= ep)
+        for ch in cv[-2::-1]:
+            # an emptied range stays empty: extend a stand-in row instead
+            sp, ep = fm.backward_extend(ch, np.where(alive, sp, 0), np.where(alive, ep, 0))
+            alive &= sp <= ep
+        length = np.where(alive, ep - sp + 1, 0)
+        start = np.where(alive, sp, 0)
+    stored = pr[pick].astype(np.int64)
+    same = (stored[:, 1] == length) & ((length == 0) | (stored[:, 0] == start))
+    if not same.all():
+        i = int(np.flatnonzero(~same)[0])
+        raise ValueError(
+            "%s: the decoded one-tree BWT disagrees with the stored ftab at row "
+            "%d: stored (start %d, len %d), backward search (start %d, len %d)"
+            % (path, int(pick[i]), stored[i, 0], stored[i, 1], start[i], length[i]))
 
 
 def _concat_aranges(sizes):
@@ -339,7 +460,9 @@ def load_cfr_index(prefix):
     """Load a reference-built index (prefix.{1,2,3}.cfr + metadata).  The FM
     index carries no source_prefix: no wide-row cache is written beside a
     reference-built index."""
-    fm = load_cfr_fm(prefix + ".1.cfr")
+    meta = load_cfr_meta(prefix)
+    fm = load_cfr_fm(prefix + ".1.cfr",
+                     protein=meta.get("sequence_type") == "amino_acid")
     tax = load_cfr_taxonomy(prefix + ".2.cfr")
     seq_length = load_cfr_seq_lengths(prefix + ".3.cfr")
-    return fm, tax, seq_length, load_cfr_meta(prefix)
+    return fm, tax, seq_length, meta

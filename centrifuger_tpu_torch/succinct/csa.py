@@ -106,21 +106,25 @@ class CompressedSuffixArray:
     def count(self, pattern):
         """# of occurrences of pattern (sequence of symbol codes)."""
         pattern = np.asarray(pattern, dtype=np.int64)
-        sp, ep = 0, self.n          # half-open row range
-        for c in pattern[::-1]:
+        if len(pattern) == 0:
+            return self.n
+        # the last symbol's rows are its whole F-interval, the length-1 suffix
+        # (special_row) included
+        c = int(pattern[-1])
+        sp, ep = int(self.C[c]), int(self.C[c + 1])     # half-open row range
+        for c in pattern[-2::-1]:
             c = int(c)
             ef = self.psi_ef[c]
-            lo, hi = int(self.C[c]), int(self.C[c + 1])
-            if lo == hi:
+            # rows i of c's F-interval with Ψ(i) in [sp, ep). The length-1
+            # suffix is the interval's first row (shorter suffixes sort first)
+            # and has no next symbol: it is skipped, and the EF part holds the
+            # Ψ values of the rows after it, in row order.
+            lo = int(self.C[c]) + (c == self.special_sym)
+            if ef is None:
                 return 0
-            # rows i in [lo, hi) with Ψ(i) in [sp, ep): new interval offsets
-            # are the counts of segment Ψ values < sp and < ep, where the
-            # segment is the sorted EF part plus the out-of-order special row
+
             def below(x):
-                r = int(ef.rank1_inclusive(x - 1)) if ef is not None else 0
-                if c == self.special_sym and self.special_val < x:
-                    r += 1
-                return r
+                return int(ef.rank1_inclusive(x - 1))
             sp, ep = lo + below(sp), lo + below(ep)
             if sp >= ep:
                 return 0

@@ -17,7 +17,7 @@ checkout and holds every kernel to its plain PyTorch twin:
   H     the read-prep flags (barcodes, UMIs, --read-format, --un / --cl,
         --merge-readpair, a sample sheet)
   I     --n-ranks 2 and cfr-merge-shards-torch
-  J     a reference-built .cfr index
+  J     the reference-built .cfr indexes (nucleotide and protein)
   K12   the dependent-gather microbenchmark (tools/micro_gather.py)
   L     the main DB through the chunked, memory-bounded builder
         (cfr-build-torch -t 8 --build-mem 2G --bmax 4194304 --checkpoint
@@ -93,7 +93,11 @@ Phases (any failure exits non-zero and prints no result):
      cfr-merge-shards-torch, equal to the single run: the 65,536 pairs (the
      main path's TSV) and the bulk route's reads (path G's TSV).
   J. tests/fixtures/tiny/refidx (.cfr) on the card: golden_class_k1.tsv,
-     and no cache file written beside it.
+     and no cache file written beside it; tests/fixtures/tiny_protein/refidx
+     (the one-tree protein .cfr) read with its self-check timed, then
+     classified on the card at -k 1, 2 and 5 (the K7 generic chain, then K3
+     with K2 inline; K5 and a K2 launch only for fallback units):
+     golden_class_k1/k2/k5.tsv, and no file written beside it.
   K12. the dependent-gather microbenchmark through its driver, then its
      kernel against its twin.
   L. the chunked build of phase 2 (about 16 chunks of at most 2^22
@@ -118,7 +122,7 @@ Phases (any failure exits non-zero and prints no result):
      SequenceHybrid over the 64 M-symbol BWT, each query's rank and access
      equal the card's; a CompressedSuffixArray over the first genome with
      sa= the native SA-IS suffix array (4,096 lookup and inverse against the
-     SA, 1,024 counts of 8-32-symbol patterns within 1 of numpy's k-mer
+     SA, 1,024 counts of 8-32-symbol patterns equal to numpy's k-mer
      counts); a PerfectHash of 10^6 distinct 31-mers (a bijection onto
      [0, n)); PartialSum over the sequence lengths (65,536 searches against
      np.searchsorted), CompactMapper over the taxids, a Permutation of 10^6
@@ -549,6 +553,17 @@ def make_database(kind, size, seed):
 LOAD_S = []   # index-load seconds of each classify() run (load_index + the classifier)
 
 
+def timed_into(spent, fn):
+    """fn, adding the seconds of each call to spent[0]."""
+    def run(*a, **k):
+        t0 = time.time()
+        try:
+            return fn(*a, **k)
+        finally:
+            spent[0] += time.time() - t0
+    return run
+
+
 def classify(prefix, reads_dir, extra, log, paired=True, **make_kw):
     """The port's CLI entry in-process; returns (TSV text, (fast units,
     fallback units)).  reads_dir None: the read arguments are in extra.
@@ -564,17 +579,8 @@ def classify(prefix, reads_dir, extra, log, paired=True, **make_kw):
     buf, err = io.StringIO(), io.StringIO()
     make, load = classify_cli.make_classifier, classify_cli.load_index
     spent = [0.0]
-
-    def timed(fn):
-        def run(*a, **k):
-            t0 = time.time()
-            try:
-                return fn(*a, **k)
-            finally:
-                spent[0] += time.time() - t0
-        return run
-    classify_cli.make_classifier = timed(functools.partial(make, **make_kw))
-    classify_cli.load_index = timed(load)
+    classify_cli.make_classifier = timed_into(spent, functools.partial(make, **make_kw))
+    classify_cli.load_index = timed_into(spent, load)
     try:
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             rc = classify_cli.main(["-x", prefix] + rargs + extra)
@@ -1027,20 +1033,72 @@ def phase_multihost(prefix, reads_dir, want, log):
             "(%d lines)" % (route, want[route].count("\n")))
 
 
-def phase_cfr(log):
-    """Path J: the checked-in reference-built tiny index (.cfr) on the card:
-    the golden TSV, and no wide-row cache written beside it."""
-    from centrifuger_tpu_torch.fm.device import SERVE_CACHE_SUFFIX
+def phase_cfr(log, protein_prefix):
+    """Path J: the checked-in reference-built indexes (.cfr) on the card: tiny
+    (the two-tree nucleotide layout) at -k 1 and tiny_protein (the one-tree
+    protein layout) at -k 1, 2 and 5, each TSV its golden and no file
+    written beside the prefix; the one-tree load's seconds and its
+    self-check's, and the ftab half of the check on path A's index (its
+    BWT and ftab as the port built them) beside that index's load."""
+    from centrifuger_tpu_torch.build import load_index
+    from centrifuger_tpu_torch.interop import cfr
     prefix = os.path.join(FX, "tiny", "refidx")
+    before = sorted(os.listdir(os.path.join(FX, "tiny")))
     tsv, _ = run_path(".cfr index", "path J", prefix, os.path.join(FX, "tiny"), [], 60,
                       ["chain_search:plain", "finalize_units:plain"], log)
     with open(os.path.join(FX, "tiny", "golden_class_k1.tsv")) as f:
         if tsv != f.read():
             fail("path J: the .cfr index's TSV differs from golden_class_k1.tsv")
-    if os.path.exists(prefix + SERVE_CACHE_SUFFIX):
-        fail("path J: a wide-row cache was written beside a reference-built index")
+    if sorted(os.listdir(os.path.join(FX, "tiny"))) != before:
+        fail("path J: a file was written beside a reference-built index")
     say("path J: tests/fixtures/tiny/refidx (.cfr) on cuda: golden_class_k1.tsv byte for "
         "byte; no cache file written beside it")
+
+    d = os.path.join(FX, "tiny_protein")
+    prefix = os.path.join(d, "refidx")
+    checks = [0.0]
+    counts_check, ftab_check = cfr._check_one_tree_counts, cfr._check_one_tree_ftab
+    cfr._check_one_tree_counts = timed_into(checks, counts_check)
+    cfr._check_one_tree_ftab = timed_into(checks, ftab_check)
+    loads = []
+    try:
+        for _ in range(2):      # the process's first one-tree load, then a second
+            checks[0] = 0.0
+            t0 = time.time()
+            fm = cfr.load_cfr_fm(prefix + ".1.cfr", protein=True)
+            loads.append((time.time() - t0, checks[0]))
+    finally:
+        cfr._check_one_tree_counts, cfr._check_one_tree_ftab = counts_check, ftab_check
+    say("path J: tiny_protein/refidx.1.cfr (one-tree, %d symbols, b %d) read in %.4f s, "
+        "its self-check (psum counts, %d sampled ftab rows) %.4f s of it; a second read "
+        "%.4f s, its check %.4f s" % ((fm.n, fm.bwt.b, loads[0][0], cfr.ONE_TREE_CHECK_ROWS,
+                                       loads[0][1]) + loads[1]))
+    with open(os.path.join(d, "reads_1.fq")) as f:
+        n_reads = sum(1 for _ in f) // 4
+    before = sorted(os.listdir(d))
+    for tag, extra in (("k1", []), ("k2", ["-k", "2"]), ("k5", ["-k", "5"])):
+        tsv, _ = run_path("protein .cfr index %s" % tag, "path J", prefix, d, extra, n_reads,
+                          ["chain_search:generic:lanes", "finalize_units:generic:protein"],
+                          log, paired=False)
+        with open(os.path.join(d, "golden_class_%s.tsv" % tag)) as f:
+            if tsv != f.read():
+                fail("path J: the protein .cfr index's TSV differs from golden_class_%s.tsv"
+                     % tag)
+    if sorted(os.listdir(d)) != before:
+        fail("path J: a file was written beside the reference-built protein index")
+    say("path J: tests/fixtures/tiny_protein/refidx (.cfr, one-tree) on cuda: "
+        "golden_class_k1/k2/k5.tsv byte for byte; no file written beside it")
+    t0 = time.time()
+    fm, _, _, _ = load_index(protein_prefix)
+    load_s = time.time() - t0
+    codes = fm.bwt.decode()
+    t0 = time.time()
+    counts_check(codes, fm.psum, protein_prefix)
+    t1 = time.time()
+    ftab_check(fm, np.stack([fm.ftab_start, fm.ftab_len], axis=1), protein_prefix)
+    say("path J: the self-check on path A's index (%d symbols, b %d): psum counts %.4f s, "
+        "%d sampled ftab rows %.4f s; that index's .npz load %.2f s"
+        % (fm.n, fm.bwt.b, t1 - t0, cfr.ONE_TREE_CHECK_ROWS, time.time() - t1, load_s))
 
 
 def same_arrays(a, b):
@@ -1271,7 +1329,7 @@ def succinct_sequences(ctx):
 def succinct_csa(ctx):
     """The CSA over the main DB's first genome, sa= the native SA-IS suffix
     array: lookup and inverse held to the SA, count to numpy's k-mer counts
-    (within the cyclic rotation's 1)."""
+    (exactly)."""
     from centrifuger_tpu_torch.fm.suffix_array import suffix_array
     from centrifuger_tpu_torch.succinct.csa import CompressedSuffixArray
     rng = ctx.rng
@@ -1297,13 +1355,16 @@ def succinct_csa(ctx):
     truth = kmer_counts(text, pats)
     t2 = time.time()
     got = np.array([csa.count(p) for p in pats])
-    if (np.abs(got - truth) > 1).any() or (truth < 1).any():
-        fail("path N: the CSA's count is off by more than the cyclic rotation's 1")
+    if (got != truth).any() or (truth < 1).any():
+        bad = int(np.flatnonzero(got != truth)[0]) if (got != truth).any() else 0
+        fail("path N: the CSA's count differs from numpy's k-mer count: %d of %d "
+             "(first: pattern %d, %d against %d)" % (int((got != truth).sum()), len(pats),
+                                                     bad, got[bad], truth[bad]))
     say("path N: CSA: %d lookup and %d inverse equal the suffix array and its inverse "
-        "(%.2f s); %d counts of 8-32-symbol patterns within 1 of numpy's k-mer counts (%d "
-        "exact; %.2f s, numpy %.2f s)" % (len(q), len(q), t1 - t0, len(pats),
-                                          int((got == truth).sum()), time.time() - t2,
-                                          t2 - t1))
+        "(%.2f s); %d counts of 8-32-symbol patterns equal numpy's k-mer counts (%d of "
+        "%d exact; %.2f s, numpy %.2f s)" % (len(q), len(q), t1 - t0, len(pats),
+                                            int((got == truth).sum()), len(pats),
+                                            time.time() - t2, t2 - t1))
 
 
 def succinct_hashing(ctx):
@@ -2321,7 +2382,7 @@ def main():
         phase_read_prep(prefixes["main"], dirs["k0"], log, args.seed + 3)
         phase_multihost(prefixes["main"], dirs["main"],
                         {"paired": tsv["main"], "bulk": tsv["bulk"]}, log)
-        phase_cfr(log)
+        phase_cfr(log, prefixes["protein"])
         say("paths G-J took %.1f s" % (time.time() - t_g))
 
         # paths L and M: the chunked build and its .cfr; the downstream CLIs

@@ -3,7 +3,12 @@
 lookup, inverse, count and nbytes equal on the same text, with sa= from the
 brute-force sort and from the port's native suffix_array (and, on a short
 text, the constructor's own sort), and held to the brute-force truth as
-tests/test_csa.py does."""
+tests/test_csa.py does.
+
+count is the one method where the two packages part: the port's count equals
+brute force exactly, while the JAX method can be one off where the pattern
+runs over the text's last symbol (its length-1 suffix is counted as if it
+could extend). The JAX value is recorded there, not asserted equal."""
 
 import numpy as np
 import pytest
@@ -43,15 +48,69 @@ def test_csa(seed, n, sigma, rate, terminator, sa_from):
     for i in range(0, n, 3):
         assert query(csa, jcsa, "lookup", i) == sa[i]
         assert query(csa, jcsa, "inverse", i) == isa[i]
-    joined = "".join(chr(65 + c) for c in text)
     pats = [text[i:i + m] for m in (1, 2, 3, 5, 8) for i in range(0, n - 8, 29)]
     pats += [np.full(12, sigma - 1), np.array([sigma - 1] * 3 + [0] * 9)]
+    pats += [text[n - m:] for m in (1, 2, 5, 12)]          # runs to the text's end
+    jax_off = []
     for pat in pats:
-        got = query(csa, jcsa, "count", pat)
-        pstr = "".join(chr(65 + c) for c in pat)
-        truth = sum(1 for i in range(n - len(pat) + 1) if joined[i:i + len(pat)] == pstr)
-        assert abs(got - truth) <= 1  # a cyclic rotation at the tail adds at most 1
+        got, truth = csa.count(pat), brute_count(text, pat)
+        assert got == truth, (pat, got, truth)
+        jgot = jcsa.count(pat)
+        if jgot != truth:
+            jax_off.append((pat.tolist(), jgot, truth))
+    # the JAX package's known fault: never more than one off
+    assert all(abs(j - t) == 1 for _, j, t in jax_off), jax_off
     assert query(csa, jcsa, "nbytes") == jcsa.nbytes()
+
+
+def brute_count(text, pat):
+    """Occurrences of pat in text, overlapping ones included."""
+    m = len(pat)
+    if m > len(text):
+        return 0
+    win = np.lib.stride_tricks.sliding_window_view(np.asarray(text), m)
+    return int((win == np.asarray(pat)).all(axis=1).sum())
+
+
+def test_count_repro_last_symbol_step():
+    """The first differing count: the port and brute force give 1, the JAX
+    package 0 (the pattern steps over the text's last symbol, 2)."""
+    from centrifuger_tpu.succinct.csa import CompressedSuffixArray as JaxCSA
+    from centrifuger_tpu_torch.fm.suffix_array import suffix_array
+    from centrifuger_tpu_torch.succinct.csa import CompressedSuffixArray
+    text = np.random.default_rng(3).integers(0, 4, 600).astype(np.uint8)
+    sa = suffix_array(text, 4)
+    pat = text[134:146]
+    assert pat.tolist() == [2, 0, 3, 3, 3, 2, 3, 2, 2, 3, 2, 3] and text[-1] == 2
+    assert brute_count(text, pat) == 1
+    assert CompressedSuffixArray(text, sa).count(pat) == 1
+    assert JaxCSA(text, sa).count(pat) == 0
+
+
+@pytest.mark.parametrize("seed,n,sigma", [
+    (11, 7, 4), (12, 60, 2), (13, 600, 4), (14, 2000, 21), (15, 20000, 4),
+    (16, 3000, 3)])
+def test_count_property(seed, n, sigma):
+    """~340 patterns a text (2,040 in all), lengths 1-12, half cut from the
+    text and half drawn at random (mostly absent), each equal to brute force."""
+    from centrifuger_tpu_torch.fm.suffix_array import suffix_array
+    from centrifuger_tpu_torch.succinct.csa import CompressedSuffixArray
+    rng = np.random.default_rng(seed)
+    text = rng.integers(0, sigma, n).astype(np.uint8)
+    csa = CompressedSuffixArray(text, suffix_array(text, sigma), sample_rate=8,
+                                sigma=sigma)
+    present = 0
+    for k in range(340):
+        m = int(rng.integers(1, 13))
+        if k % 2 and m <= n:
+            i = int(rng.integers(0, n - m + 1))
+            pat = text[i:i + m]
+        else:
+            pat = rng.integers(0, sigma, m).astype(np.uint8)
+        truth = brute_count(text, pat)
+        present += truth > 0
+        assert csa.count(pat) == truth, (pat.tolist(), truth)
+    assert 0 < present < 340
 
 
 def test_csa_constructor_sort_and_space():
