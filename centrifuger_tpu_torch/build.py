@@ -141,6 +141,7 @@ def build_index(genome_files, taxonomy_file, name_table, conversion_table,
         sys.exit(1)
 
     codes = np.concatenate(chunks)
+    chunks = taxid_chunks = None     # the codes are all in `codes` now
     log("Found %d sequences with total length %d bp." % (len(genome_lens), len(codes)))
 
     # serving accelerator: precompute the per-row LF-walk result (one-gather

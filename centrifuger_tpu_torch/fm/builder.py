@@ -15,6 +15,7 @@ import numpy as np
 
 from .index import FMIndexData
 from .runblock import RunBlockSeq
+from ..succinct.packed import PIECE
 from .suffix_array import suffix_array, bwt_from_sa
 from ..utils import log2ceil, div_ceil
 
@@ -149,39 +150,63 @@ def build_fm(codes, genome_lens, genome_seqids, alphabet, params,
     return idx
 
 
-def compute_rowmap(idx, sa):
+ROWMAP_PIECE = 1 << 20   # rows a searchsorted step of compute_rowmap
+
+
+def compute_rowmap(idx, sa, out=None):
     """Serving accelerator: rowmap[row] = the exact value the
     BackwardToSampledSA LF-walk (reference FMIndex.hpp:513-524) would return
     for `row`, precomputed for every BWT row.  The walk visits rows of text
     positions SA[row], SA[row]-1, ... and stops at the first stored row, so
     rowmap[row] = value of the stored row with the largest text position
     <= SA[row].  Turns the device resolve loop into one gather; costs 4
-    bytes/char, so it is built only for small/medium databases."""
+    bytes/char, so it is built only for small/medium databases.  Works in
+    pieces of ROWMAP_PIECE rows; `out` (int32, may be `sa` itself) takes the
+    result."""
     n = idx.n
-    rows = np.arange(n, dtype=np.int64)
-    stored = np.zeros(n, dtype=bool)
-    val = np.zeros(n, dtype=np.int64)
-    # precedence must mirror DeviceFM.get_sampled_sa / FMIndex semantics:
-    # firstISA first, then row-sampled, then selected/end-marker rows
+    rate = idx.sample_rate
+    # the stored rows besides the row samples, in rising precedence (a later
+    # value of a row wins, as DeviceFM.get_sampled_sa / FMIndex resolve
+    # them): end-marker rows, then the selected rows; a row sample and then
+    # firstISA win over both
+    xr, xv = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
     if idx.has_end_marker and idx.end_marker_sa is not None:
-        m = len(idx.end_marker_sa)
-        stored[:m] = True
-        val[:m] = idx.end_marker_sa
+        xr.append(np.arange(len(idx.end_marker_sa), dtype=np.int64))
+        xv.append(np.asarray(idx.end_marker_sa, np.int64))
     if idx.selected_rows is not None and len(idx.selected_rows):
-        stored[idx.selected_rows] = True
-        val[idx.selected_rows] = idx.selected_vals
-    samp = rows % idx.sample_rate == 0
-    stored[samp] = True
-    val[samp] = idx.sampled_sa[rows[samp] // idx.sample_rate]
-    stored[idx.first_isa] = True
-    val[idx.first_isa] = idx.adjusted_sa0
-    s_rows = np.flatnonzero(stored)
-    s_pos = sa[s_rows]
-    order = np.argsort(s_pos)
-    s_pos = s_pos[order]
-    s_val = val[s_rows][order]
-    k = np.searchsorted(s_pos, sa, side="right") - 1
-    return s_val[k].astype(np.int32)
+        xr.append(np.asarray(idx.selected_rows, np.int64))
+        xv.append(np.asarray(idx.selected_vals, np.int64))
+    xr, xv = np.concatenate(xr)[::-1], np.concatenate(xv)[::-1]
+    xr, last = np.unique(xr, return_index=True)
+    xv = xv[last]
+    keep = (xr % rate != 0) & (xr != idx.first_isa)
+    xr, xv = xr[keep], xv[keep]
+    # text position and value of every stored row (firstISA's position is 0)
+    pos = np.concatenate([sa[::rate], sa[xr], np.zeros(1, sa.dtype)])
+    val = np.concatenate([np.asarray(idx.sampled_sa, np.int64), xv,
+                          np.array([idx.adjusted_sa0], np.int64)])
+    if idx.first_isa % rate == 0:      # firstISA is a row sample: one entry
+        val[idx.first_isa // rate] = idx.adjusted_sa0
+        pos, val = pos[:-1], val[:-1]
+    order = np.argsort(pos)
+    s_pos = pos[order]
+    s_val = val[order].astype(np.int32)
+    del pos, val, order
+    if out is None:
+        out = np.empty(n, np.int32)
+    for a in range(0, n, ROWMAP_PIECE):
+        k = np.searchsorted(s_pos, sa[a:a + ROWMAP_PIECE], side="right") - 1
+        out[a:a + ROWMAP_PIECE] = s_val[k]
+    return out
+
+
+def _bincount(codes, sigma):
+    """np.bincount of uint8 codes, a piece at a time (np.bincount casts its
+    input to intp, 8 bytes a symbol)."""
+    counts = np.zeros(sigma, np.int64)
+    for a in range(0, len(codes), PIECE):
+        counts += np.bincount(codes[a:a + PIECE], minlength=sigma)[:sigma]
+    return counts
 
 
 class _StreamAccum:
@@ -257,15 +282,108 @@ class _StreamAccum:
                     end_marker_sa=self.end_marker_sa)
 
     def load_state(self, st):
-        self.bwt = st["bwt"].copy()
-        self.sampled = st["sampled"].copy()
-        self.ftab_len = st["ftab_len"].copy()
-        self.ftab_start = st["ftab_start"].copy()
-        self.ftab_seen = st["ftab_seen"].copy()
+        self.bwt = st["bwt"]
+        self.sampled = st["sampled"]
+        self.ftab_len = st["ftab_len"]
+        self.ftab_start = st["ftab_start"]
+        self.ftab_seen = st["ftab_seen"]
         self.first_isa = int(st["first_isa"])
-        self.sel_rows = [st["sel_rows"]] if len(st["sel_rows"]) else []
-        self.sel_vals_pos = [st["sel_vals_pos"]] if len(st["sel_vals_pos"]) else []
-        self.end_marker_sa = st["end_marker_sa"].copy()
+        sel_rows, sel_vals_pos = st["sel_rows"], st["sel_vals_pos"]
+        self.sel_rows = [sel_rows] if len(sel_rows) else []
+        self.sel_vals_pos = [sel_vals_pos] if len(sel_vals_pos) else []
+        self.end_marker_sa = st["end_marker_sa"]
+
+
+# --build-mem model (build_memory): the build's peak RSS above its start is
+# the largest of its phases, each the sum of the arrays alive in it.  The
+# per-row and per-char terms were measured on the CPU (RSS sampled every
+# 1-5 ms, numpy's allocations traced) and rounded up.
+MEM_BASE = 96 << 20            # interpreter, native library and allocator slack
+ADD_PIECE = 1 << 19            # rows a _StreamAccum.add call takes at most
+ADD_BYTES_PER_ROW = 64         # add()'s temporaries a row (48 measured: gathers,
+                               # k-mers, their sort)
+BATCH_BYTES_PER_ROW = 8        # a batch of chunks: its int64 positions (8.00
+                               # measured; native/sa_chunked.cpp sorts in place)
+DC_SORT_FACTOR = 6             # the DC sort's peak over its rank array (5 measured)
+TAIL_BYTES_PER_CHAR = 4        # the run-block build: block masks, literal stream,
+                               # its packing (3.7 measured), and the .cfr writer
+ROWMAP_BYTES_PER_SAMPLE = 36   # compute_rowmap: position, value and order of
+                               # every stored row
+BMAX_FLOOR = 1 << 16           # --build-mem lowers bmax no further than this
+
+
+def build_memory(n, sigma, params, dcv, bmax, threads, rowmap, kprefix):
+    """Bytes of each phase of build_fm_streaming (and of build_index's
+    parse before it) above the RSS at the build's start, for --build-mem:
+    parse (the codes twice while they are joined), dc (the sample sort),
+    plan (the 4^k k-mer table), chunks (the chunk pass: the accumulated
+    BWT / samples / ftab, the DC ranks, the int32 SA capture for the rowmap,
+    threads * bmax rows of a batch and one add() piece), tail (the rowmap
+    and the run-block BWT built from them; the .cfr writer that may follow
+    holds less)."""
+    v = 2
+    while v * v < dcv:
+        v += 1
+    dc = (n // (v * v) + 1) * (2 * v - 1) * 8
+    text = n
+    samples = div_ceil(n, params.sample_rate)
+    acc = n + 8 * samples + 25 * (1 << (log2ceil(sigma) * params.precompute_width))
+    capture = 4 * n if rowmap else 0
+    batch = min(threads * bmax, n)       # a batch never holds more than the text
+    rows = min(bmax, ADD_PIECE, n)
+    return {
+        "parse": MEM_BASE + 2 * text,
+        "dc": MEM_BASE + text + acc + DC_SORT_FACTOR * dc,
+        "plan": MEM_BASE + text + acc + dc + 8 * (1 << (log2ceil(sigma) * kprefix)),
+        "chunks": MEM_BASE + text + acc + dc + capture +
+        BATCH_BYTES_PER_ROW * batch + ADD_BYTES_PER_ROW * rows,
+        "tail": MEM_BASE + text + acc + capture + TAIL_BYTES_PER_CHAR * n +
+        (ROWMAP_BYTES_PER_SAMPLE * samples if rowmap else 0),
+    }
+
+
+def fit_build_mem(build_mem, n, sigma, params, dcv, bmax, threads, rowmap, kprefix):
+    """(bmax, rowmap, fixed, peak) under the budget: bmax is lowered first
+    (to BMAX_FLOOR at least), the rowmap capture dropped next; raises
+    MemoryError when neither fits."""
+    def peaks(b, keep):
+        return build_memory(n, sigma, params, dcv, b, threads, keep, kprefix)
+    for keep in ([True, False] if rowmap else [False]):
+        m = peaks(min(bmax, BMAX_FLOOR), keep)
+        need = max(m.values())
+        if need > build_mem:
+            continue
+        # the chunk pass without its batch and add() rows
+        fixed = peaks(0, keep)["chunks"]
+        b = bmax
+        if peaks(b, keep)["chunks"] > build_mem:
+            room = build_mem - fixed
+            b = (room - ADD_BYTES_PER_ROW * ADD_PIECE) // (BATCH_BYTES_PER_ROW * threads)
+            if b < ADD_PIECE:
+                b = room // (BATCH_BYTES_PER_ROW * threads + ADD_BYTES_PER_ROW)
+        return b, keep, fixed, max(peaks(b, keep).values())
+    # dc_bytes ~ (2r-1)/r^2 per char, so a LARGER --dcv shrinks the
+    # difference-cover sample footprint
+    raise MemoryError(
+        "--build-mem %d too small: fixed state needs ~%d bytes; "
+        "increase the budget or increase --dcv" % (build_mem, need))
+
+
+def _plan_mismatch(z, n, digest, plan):
+    """Why a state checkpoint cannot resume under this run's input and chunk
+    plan (None when it can)."""
+    if int(z["n"]) != n or ("digest" in z.files and str(z["digest"]) != digest):
+        return "checkpoint state does not match input"
+    if "plan_digest" not in z.files:
+        # a state file without a plan (the JAX package's, or an older
+        # build's) cannot show that its rows end where this plan's
+        # next_chunk starts
+        return "checkpoint state records no chunk plan"
+    for key in ("k", "bmax", "dcv", "n_chunks", "plan_digest"):
+        if str(z[key]) != str(plan[key]):
+            return "checkpoint state was written under another chunk plan (%s %s, now %s)" \
+                % (key, z[key], plan[key])
+    return None
 
 
 def build_fm_streaming(codes, genome_lens, genome_seqids, alphabet, params,
@@ -273,8 +391,9 @@ def build_fm_streaming(codes, genome_lens, genome_seqids, alphabet, params,
                        checkpoint_prefix=None, log=None):
     """Memory-bounded FM construction over the chunked external SA
     (fm/sa_external.py). Honors --bmax/--dcv/--build-mem/-t with
-    ~10%-granularity checkpoint/resume; output identical to build_fm."""
-    from .sa_external import ChunkedSA
+    ~10%-granularity checkpoint/resume; output identical to build_fm.
+    --build-mem bounds the build's peak RSS growth (build_memory)."""
+    from .sa_external import ChunkedSA, default_kprefix
 
     log = log or (lambda m: None)
     codes = np.asarray(codes, dtype=np.uint8)
@@ -282,24 +401,19 @@ def build_fm_streaming(codes, genome_lens, genome_seqids, alphabet, params,
     sigma = len(alphabet)
     pw = params.precompute_width
 
+    # rowmap accelerator: the chunk pass visits SA rows in order, so the full
+    # SA can be captured on the fly (int32, turned into the rowmap in place)
+    want_rowmap = bool(getattr(params, "row_map", False)) and n < (1 << 31)
     if build_mem:
-        # peak ~= codes + bwt + DC ranks + ftab tables + threads * chunk bufs
-        r = 2
-        while r * r < dcv:
-            r += 1
-        dc_bytes = (n // (r * r) + 1) * (2 * r - 1) * 8
-        ftab_bytes = 3 * (1 << (log2ceil(sigma) * pw)) * 8
-        fixed = 2 * n + dc_bytes + ftab_bytes + (256 << 20)
-        usable = build_mem - fixed
-        if usable < (1 << 22) * threads * 24:
-            # dc_bytes ~ (2r-1)/r^2 per char, so a LARGER --dcv shrinks the
-            # difference-cover sample footprint
-            raise MemoryError(
-                "--build-mem %d too small: fixed state needs ~%d bytes; "
-                "increase the budget or increase --dcv" % (build_mem, fixed))
-        bmax = min(bmax, usable // (threads * 24))
-        log("build-mem %d: using bmax=%d (fixed state ~%d)"
-            % (build_mem, bmax, fixed))
+        kprefix = default_kprefix(n, sigma)
+        bmax, keep, fixed, peak = fit_build_mem(
+            build_mem, n, sigma, params, dcv, bmax, threads, want_rowmap, kprefix)
+        log("build-mem %d: using bmax=%d (fixed state ~%d, peak ~%d)"
+            % (build_mem, bmax, fixed, peak))
+        if want_rowmap and not keep:
+            log("note: --row-map skipped: the full SA capture (~%d bytes) does "
+                "not fit --build-mem" % (4 * n))
+            want_rowmap = False
 
     genome_lens = np.asarray(genome_lens, dtype=np.int64)
     genome_seqids = np.asarray(genome_seqids, dtype=np.int64)
@@ -316,37 +430,32 @@ def build_fm_streaming(codes, genome_lens, genome_seqids, alphabet, params,
     acc = _StreamAccum(codes, sigma, params, sel_pos)
     cs = ChunkedSA(codes, sigma, dcv=dcv, bmax=bmax, threads=threads,
                    checkpoint_prefix=checkpoint_prefix, log=log)
-    # rowmap accelerator: the chunk pass visits SA rows in order, so the full
-    # SA can be captured on the fly when the +12 bytes/char fits the budget
-    want_rowmap = bool(getattr(params, "row_map", False)) and n < (1 << 31)
-    if want_rowmap and build_mem and (build_mem - 2 * n - (256 << 20)) < 12 * n:
-        log("note: --row-map skipped: the full SA capture (~%d bytes) does "
-            "not fit --build-mem" % (12 * n))
-        want_rowmap = False
     start_chunk = 0
     st_path = (checkpoint_prefix + "_checkpoint_state.npz") \
         if checkpoint_prefix else None
+    plan = cs.plan_record() if st_path else None
     if st_path and os.path.exists(st_path):
-        z = np.load(st_path, allow_pickle=False)
-        # digest guard: same-length-but-different input must NOT resume from
-        # stale accumulated BWT state (mirrors the SA-IS checkpoint guard)
-        if int(z["n"]) == n and ("digest" not in z.files
-                                 or str(z["digest"]) == cs.digest):
-            acc.load_state(z)
-            start_chunk = int(z["next_chunk"])
-            log("resuming build at chunk %d" % start_chunk)
-        else:
-            log("checkpoint state does not match input; starting fresh")
+        with np.load(st_path, allow_pickle=False) as z:
+            # the state resumes only under the same input (digest) and the
+            # same chunk plan: its rows end where this plan's next_chunk starts
+            why = _plan_mismatch(z, n, cs.digest, plan)
+            if why is None:
+                acc.load_state(z)
+                start_chunk = int(z["next_chunk"])
+                log("resuming build at chunk %d" % start_chunk)
+            else:
+                log("%s; starting fresh" % why)
     if want_rowmap and start_chunk > 0:
         log("note: --row-map skipped on checkpoint resume (earlier SA chunks "
             "were not captured)")
         want_rowmap = False
-    sa_full = np.empty(n, np.int64) if want_rowmap else None
+    sa_full = np.empty(n, np.int32) if want_rowmap else None
 
     done = 0
     last_ckpt = start_chunk
     for ci, row0, part in cs.iter_chunks(start_chunk):
-        acc.add(row0, part)
+        for a in range(0, len(part), ADD_PIECE):
+            acc.add(row0 + a, part[a:a + ADD_PIECE])
         if sa_full is not None:
             sa_full[row0:row0 + len(part)] = part
         done = ci + 1
@@ -354,10 +463,11 @@ def build_fm_streaming(codes, genome_lens, genome_seqids, alphabet, params,
                 (done - last_ckpt) >= max(cs.n_chunks // 10, 1):
             st = acc.state()
             np.savez(st_path + ".tmp.npz", n=n, next_chunk=done,
-                     digest=cs.digest, **st)
+                     digest=cs.digest, **plan, **st)
             os.replace(st_path + ".tmp.npz", st_path)
             last_ckpt = done
             log("checkpoint at chunk %d/%d" % (done, cs.n_chunks))
+    part = None          # a view of the chunk pass's batch buffer: let it go
     cs.close()
     if st_path:
         for p in (st_path, checkpoint_prefix + "_checkpoint.json",
@@ -377,7 +487,7 @@ def build_fm_streaming(codes, genome_lens, genome_seqids, alphabet, params,
     idx.sample_rate = params.sample_rate
     idx.has_end_marker = params.has_end_marker
 
-    counts = np.bincount(acc.bwt, minlength=sigma)
+    counts = _bincount(acc.bwt, sigma)
     idx.psum = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     idx.ftab_start = acc.ftab_start
     idx.ftab_len = acc.ftab_len
@@ -407,7 +517,7 @@ def build_fm_streaming(codes, genome_lens, genome_seqids, alphabet, params,
     idx.selected_rows = selected_rows
     idx.selected_vals = selected_vals
     idx.end_marker_sa = end_marker_sa
-    idx.bwt = RunBlockSeq.from_codes(acc.bwt, sigma, b=params.rbbwt_b)
     if sa_full is not None:
-        idx.rowmap = compute_rowmap(idx, sa_full)
+        idx.rowmap = compute_rowmap(idx, sa_full, out=sa_full)
+    idx.bwt = RunBlockSeq.from_codes(acc.bwt, sigma, b=params.rbbwt_b)
     return idx

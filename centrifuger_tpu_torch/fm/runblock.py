@@ -1,4 +1,5 @@
-# Port copy of centrifuger_tpu.fm.runblock (host code, no accelerator).
+# Port copy of centrifuger_tpu.fm.runblock (host code, no accelerator);
+# its builders run in pieces of succinct.packed.PIECE symbols.
 """Run-block compressed sequence: the RBBWT structure of the Centrifuger paper.
 
 Semantics mirror Sequence_RunBlock (reference compactds/Sequence_RunBlock.hpp):
@@ -15,53 +16,81 @@ rank bitvector.  Rank return values are identical.
 import numpy as np
 
 from ..succinct.bitvector import Bitvector
-from ..succinct.packed import PackedSeq
+from ..succinct.packed import PIECE, PackedSeq
 from ..utils import div_ceil
+
+
+CHANGE_PIECE = 1 << 20   # symbols a step of the change scan
+
+
+def _changes(codes):
+    """Per piece of CHANGE_PIECE symbols, the positions j >= 1 where
+    codes[j] != codes[j - 1]."""
+    for s in range(0, len(codes), CHANGE_PIECE):
+        lo = max(s, 1)
+        e = min(s + CHANGE_PIECE, len(codes))
+        if lo < e:
+            yield lo + np.flatnonzero(codes[lo:e] != codes[lo - 1:e - 1])
+
+
+def run_block_masks(codes, sizes):
+    """{b: is_run per block of b symbols} for every b in `sizes`, in one
+    scan: a block is a run block when every symbol equals its first (no
+    change strictly inside the block).  Also returns the number of runs."""
+    n = len(codes)
+    masks = {b: np.full(div_ceil(max(n, 1), b), n > 0) for b in sizes}
+    runs = 1
+    for j in _changes(codes):
+        runs += len(j)
+        for b, m in masks.items():
+            m[j[j % b != 0] // b] = False
+    return masks, runs
+
+
+def run_block_mask(codes, b):
+    """is_run per block of b symbols (run_block_masks for one size)."""
+    return run_block_masks(codes, [b])[0][b]
 
 
 def choose_block_size(codes, sigma, infer_len=1024):
     """Pick the run-block size minimizing estimated space; same candidate set as
     the reference (powers of two, 1.5x best, sqrt(mean run length); reference
-    compactds/Sequence_RunBlock.hpp:135-177) but measured exactly on the data
-    with vectorized prefix scans instead of sampled chunks."""
+    compactds/Sequence_RunBlock.hpp:135-177) but measured exactly on the data,
+    the powers of two in one scan of the codes and the two others in a
+    second."""
     n = len(codes)
     if n == 0:
         return 1
     alphabet_bit = max(1, (sigma - 1).bit_length())
-    boundaries = np.flatnonzero(codes[1:] != codes[:-1]) + 1
-    run_starts = np.concatenate([[0], boundaries])
-    run_ends = np.concatenate([boundaries, [n]])
-    avg_run = n / len(run_starts)
 
-    def space(b):
+    def space(b, is_run):
         if b <= 1:
             return alphabet_bit * n
-        # run blocks = blocks fully inside a single run
-        nblocks = div_ceil(n, b)
-        # block i is a run block iff the run covering position i*b extends past
-        # min((i+1)*b, n)-1
-        starts = np.arange(nblocks, dtype=np.int64) * b
-        ends = np.minimum(starts + b, n) - 1
-        run_idx = np.searchsorted(run_starts, starts, side="right") - 1
-        is_run = run_ends[run_idx] - 1 >= ends
         run_cnt = int(is_run.sum())
-        lit_len = n - (int((ends + 1 - starts)[is_run].sum()))
-        return nblocks + alphabet_bit * (run_cnt + lit_len)
+        # every run block holds b symbols, but a short last one
+        run_len = run_cnt * b - (b * len(is_run) - n if is_run[-1] else 0)
+        return len(is_run) + alphabet_bit * (run_cnt + n - run_len)
 
     cands = []
     b = 1
     while b <= infer_len:
         cands.append(b)
         b *= 2
-    best = min(cands, key=space)
+    masks, runs = run_block_masks(codes, [c for c in cands if c > 1])
+    spaces = {c: space(c, masks.get(c)) for c in cands}
+    del masks
+    best = min(cands, key=spaces.get)
     extra = []
     if best >= 2:
         extra.append(best // 2 * 3)
-    sq = int(np.ceil(np.sqrt(avg_run)))
+    sq = int(np.ceil(np.sqrt(n / runs)))
     if sq > 2:
         extra.append(sq)
+    masks, _ = run_block_masks(codes, [e for e in extra if e not in spaces])
     for e in extra:
-        if space(e) < space(best):
+        if e not in spaces:
+            spaces[e] = space(e, masks[e])
+        if spaces[e] < spaces[best]:
             best = e
     return best
 
@@ -89,29 +118,21 @@ class RunBlockSeq:
         if b == 1:
             b = max(n, 1)
         block_cnt = div_ceil(max(n, 1), b)
-
-        starts = np.arange(block_cnt, dtype=np.int64) * b
-        ends = np.minimum(starts + b, n)
-        if n > 0:
-            # block is a run block iff all symbols equal its first symbol
-            diff = np.zeros(n, dtype=np.int64)
-            diff[1:] = (codes[1:] != codes[:-1]).astype(np.int64)
-            diff[starts] = 0  # first element of each block never counts as a change
-            csum = np.concatenate([[0], np.cumsum(diff)])
-            is_run = (csum[ends] - csum[starts]) == 0
-        else:
-            is_run = np.zeros(block_cnt, dtype=bool)
-
+        is_run = run_block_mask(codes, b)
         indicator = Bitvector.from_bits(is_run)
 
-        # literal stream: concatenation of non-run blocks
-        if n > 0:
-            blk_of = np.arange(n) // b
-            lit_codes = codes[~is_run[blk_of]]
-            run_codes = codes[starts[is_run]]
-        else:
-            lit_codes = np.zeros(0, dtype=np.uint8)
-            run_codes = np.zeros(0, dtype=np.uint8)
+        # literal stream: concatenation of non-run blocks, a piece at a time
+        run_blocks = np.flatnonzero(is_run)
+        run_len = len(run_blocks) * b - (b * block_cnt - n if n and is_run[-1] else 0)
+        lit_codes = np.empty(n - run_len, dtype=np.uint8)
+        per = max(1, PIECE // b)          # blocks a piece
+        at = 0
+        for i in range(0, block_cnt if n else 0, per):
+            piece = codes[i * b:(i + per) * b]
+            piece = piece[np.repeat(~is_run[i:i + per], b)[:len(piece)]]
+            lit_codes[at:at + len(piece)] = piece
+            at += len(piece)
+        run_codes = codes[run_blocks * b]
         lit = PackedSeq.from_codes(lit_codes, sigma)
         run = PackedSeq.from_codes(run_codes, sigma)
         return cls(n, b, block_cnt, sigma, indicator, lit, run)

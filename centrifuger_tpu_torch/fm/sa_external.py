@@ -8,14 +8,16 @@ order. Peak memory stays near
 
     text + BWT accumulation + DC sample ranks + threads * bmax * 8B
 
-instead of the ~17 bytes/char a whole-text SA-IS needs — the capability of
+(fm/builder.py:build_memory counts every term of it) instead of the ~17
+bytes/char a whole-text SA-IS needs — the capability of
 the reference's --build-mem/--bmax/--dcv machinery
 (compactds/FMBuilder.hpp:371-438 parameter inference, :444-811 chunk builds;
 compactds/SuffixArrayGenerator.hpp) in an independent k-mer-bucket design.
 
 Checkpoint/resume mirrors the reference's protocol (FMBuilder.hpp:52-58):
 state is dumped after the DC phase and every ~10% of chunk batches; an
-interrupted build resumes from the last completed batch.
+interrupted build resumes from the last completed batch, under the same
+chunk plan only (plan_record; fm/builder.py starts afresh otherwise).
 """
 
 import ctypes
@@ -25,6 +27,16 @@ import os
 import numpy as np
 
 from ..utils import log2ceil
+
+
+def default_kprefix(n, sigma):
+    """The chunk plan's k-mer length: its counters table has at most 2^24
+    entries (128 MB of int64) and at most ~4n."""
+    bits = max(1, log2ceil(int(sigma)))
+    k = max(1, min(24 // bits, 12))
+    while k > 2 and (1 << (bits * k)) > 4 * max(n, 1):
+        k -= 1
+    return k
 
 
 class ChunkedSA:
@@ -49,12 +61,8 @@ class ChunkedSA:
         import hashlib
         self.digest = hashlib.sha256(self.codes.tobytes()).hexdigest()[:16] \
             if self.ckpt else None
-        if kprefix is None:
-            # counters table <= 2^24 entries (128 MB of int64) and <= ~4n
-            kprefix = max(1, min(24 // self.bits, 12))
-            while kprefix > 2 and (1 << (self.bits * kprefix)) > 4 * max(self.n, 1):
-                kprefix -= 1
-        self.k = int(kprefix)
+        self.k = int(default_kprefix(self.n, self.sigma) if kprefix is None else kprefix)
+        self.chunks = None
         self.h = self.lib.sac_create(
             self.codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             self.n, self.sigma, self.dcv)
@@ -128,51 +136,80 @@ class ChunkedSA:
 
     def plan_chunks(self):
         """k-mer histogram -> list of (kmer_lo, kmer_hi, count) chunks with
-        count <= bmax where possible (single overweight k-mers may exceed)."""
+        count <= bmax where possible (single overweight k-mers may exceed).
+        The histogram becomes its own inclusive prefix sum in place, so the
+        plan holds one 4^k table of int64."""
         size = 1 << (self.bits * self.k)
-        hist = np.zeros(size, np.int64)
-        self.lib.sac_kmer_hist(self.h, self.k, hist.ctypes.data_as(
+        cum = np.zeros(size, np.int64)
+        self.lib.sac_kmer_hist(self.h, self.k, cum.ctypes.data_as(
             ctypes.POINTER(ctypes.c_int64)))
-        cum = np.concatenate([[0], np.cumsum(hist)])
+        np.cumsum(cum, out=cum)          # cum[i] = suffixes with key <= i
+
+        def before(b):                    # suffixes with key < b
+            return int(cum[b - 1]) if b > 0 else 0
         bounds = [0]
-        cur = 0
-        # vectorized greedy: repeatedly find furthest cut with cum - cum[cur] <= bmax
+        # vectorized greedy: repeatedly find furthest cut with
+        # before(cut) - before(cur) <= bmax
         while bounds[-1] < size:
             cur = bounds[-1]
-            hi = int(np.searchsorted(cum, cum[cur] + self.bmax, side="right")) - 1
+            hi = int(np.searchsorted(cum, before(cur) + self.bmax, side="right"))
             if hi <= cur:
                 hi = cur + 1  # single overweight k-mer
             bounds.append(min(hi, size))
-        chunks = []
-        for i in range(len(bounds) - 1):
-            c = int(cum[bounds[i + 1]] - cum[bounds[i]])
-            chunks.append((bounds[i], bounds[i + 1], c))
-        return chunks
+        return [(bounds[i], bounds[i + 1], before(bounds[i + 1]) - before(bounds[i]))
+                for i in range(len(bounds) - 1)]
+
+    def prepare(self):
+        """The difference-cover ranks (sorted, or read from the checkpoint)
+        and the chunk plan; iter_chunks calls it when it has not run."""
+        if self.chunks is not None:
+            return
+        if not self._try_load_dc():
+            self.log("sorting difference-cover sample (v=%d)..."
+                     % self.lib.sac_v(self.h))
+            self.lib.sac_dc_init(self.h, self.threads)
+            self._save_dc()
+        self.chunks = self.plan_chunks()
+        self.n_chunks = len(self.chunks)
+        self.log("chunk plan: %d chunks (k=%d, bmax=%d)"
+                 % (self.n_chunks, self.k, self.bmax))
+
+    def plan_record(self):
+        """What a state checkpoint must match to resume under this plan: the
+        k-mer length, bmax, the DC period, the chunk count and a digest of
+        the chunk bounds and counts."""
+        import hashlib
+        self.prepare()
+        digest = hashlib.sha256(np.asarray(self.chunks, np.int64).tobytes()).hexdigest()[:16]
+        return {"k": self.k, "bmax": self.bmax, "dcv": self.dcv,
+                "n_chunks": self.n_chunks, "plan_digest": digest}
 
     def __iter__(self):
         return self.iter_chunks(0)
 
     def iter_chunks(self, start_chunk=0):
         """Yields (chunk_index, row0, sorted_positions) in global SA order,
-        starting at chunk `start_chunk` (for checkpoint resume)."""
-        if not self._try_load_dc():
-            self.log("sorting difference-cover sample (v=%d)..."
-                     % self.lib.sac_v(self.h))
-            self.lib.sac_dc_init(self.h, self.threads)
-            self._save_dc()
-        chunks = self.plan_chunks()
-        self.n_chunks = len(chunks)
-        self.log("chunk plan: %d chunks (k=%d, bmax=%d)"
-                 % (len(chunks), self.k, self.bmax))
+        starting at chunk `start_chunk` (for checkpoint resume).  A batch is
+        up to `threads` consecutive chunks of at most min(threads * bmax, n)
+        suffixes together (one overweight chunk alone may be more); every
+        batch's positions land in one reused buffer, so each yielded array
+        is valid until the next one is asked for."""
+        self.prepare()
+        chunks = self.chunks
         T = self.threads
         row0 = sum(c[2] for c in chunks[:start_chunk])
+        cap = max(min(T * self.bmax, self.n),
+                  max((c[2] for c in chunks[start_chunk:]), default=1), 1)
+        out = np.empty(cap, np.int64)
         i = start_chunk
         while i < len(chunks):
-            batch = chunks[i:i + T]
+            j, total = i + 1, chunks[i][2]
+            while j < len(chunks) and j - i < T and total + chunks[j][2] <= cap:
+                total += chunks[j][2]
+                j += 1
+            batch = chunks[i:j]
             lo = np.array([c[0] for c in batch], np.uint64)
             hi = np.array([c[1] for c in batch], np.uint64)
-            total = sum(c[2] for c in batch)
-            out = np.empty(max(total, 1), np.int64)
             offs = np.zeros(len(batch) + 1, np.int64)
             got = self.lib.sac_sort_chunks(
                 self.h, self.k,
@@ -184,11 +221,11 @@ class ChunkedSA:
                 offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
             if got < 0:
                 raise RuntimeError("chunk capacity exceeded (histogram drift?)")
-            for j in range(len(batch)):
-                part = out[offs[j]:offs[j + 1]]
-                yield i + j, row0, part
+            for m in range(len(batch)):
+                part = out[offs[m]:offs[m + 1]]
+                yield i + m, row0, part
                 row0 += len(part)
-            i += len(batch)
+            i = j
         if row0 != self.n:
             raise RuntimeError("chunked SA covered %d of %d suffixes"
                                % (row0, self.n))

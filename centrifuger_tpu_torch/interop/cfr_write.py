@@ -16,13 +16,24 @@ check).  Every sub-structure replicates the reference's construction:
   * run-block split streams          (Sequence_RunBlock.hpp:231-358)
   * plain Alphabet code tables       (Alphabet.hpp:51-69, 194-205)
 Nucleotide (Sequence_RunBlock) indexes only; the protein one-tree layout is
-not emitted yet.
+not emitted yet.  The files equal the reference-built
+tests/fixtures/{tiny,small,tiny_single}/refidx.1.cfr byte for byte,
+the `_space` accounting fields and the rank9 directories included.
 """
 
 import struct
 import time
 
 import numpy as np
+
+# Object sizes of the reference's x86-64 build, which its `_space` fields
+# count (the compactds idiom `_space += m.GetSpace() - sizeof(m)`, where a
+# structure's GetSpace() adds sizeof(*this) to its own `_space`).  Solved
+# from tiny's refidx.1.cfr and held by the five other `_space` values of the
+# three reference-built fixtures (tests/test_torch_cfr_write.py).
+_SIZEOF_BITVECTOR_PLAIN = 592
+_SIZEOF_WAVELET_TREE = 1640
+_U64 = (1 << 64) - 1
 
 
 class _W:
@@ -103,9 +114,9 @@ def _rank9_dir(words, nbits):
     v = (v & m2) + ((v >> np.uint64(2)) & m2)
     v = (v + (v >> np.uint64(4))) & m4
     pc = (v * h) >> np.uint64(56)
-    # mimic the trailing-subblock fill: words past word_cnt contribute 0 ones,
-    # so the plain cumulative formula below already matches the reference's
-    # boundary fill (localOneCntSum stops growing).
+    # words past word_cnt contribute 0 ones, so the cumulative formula fills a
+    # final block's fields past its last word with the block's total, as the
+    # reference does when that block holds two or more words
     cum = np.concatenate([[0], np.cumsum(pc)])
     blocks = pc.reshape(block_cnt, 8)
     local = np.cumsum(blocks, axis=1)  # inclusive within block
@@ -113,8 +124,19 @@ def _rank9_dir(words, nbits):
     sub = np.zeros(block_cnt, dtype=np.uint64)
     for j in range(1, 8):
         sub |= (local[:, j - 1].astype(np.uint64) << np.uint64((j - 1) * 9))
+    if word_cnt % 8 == 1:
+        # a final block of one word needs no sub-block count: the reference
+        # leaves its word 0
+        sub[-1] = 0
     R[1::2] = sub
     return R, word_cnt
+
+
+def _bitvector_space(nbits):
+    """Bitvector_Plain::_space: the bit words and the rank9 directory (two
+    words for every 8-word block); a select of speed NO adds nothing."""
+    words = _bits_to_words(nbits)
+    return 8 * words + 16 * ((words + 7) // 8)
 
 
 def _write_alphabet_plain(w, alphabet):
@@ -143,8 +165,7 @@ def _write_bitvector_plain(w, bits, select_speed=0, select_type=3):
     n = len(bits)
     words = _pack_bits(bits)
     R, word_cnt = _rank9_dir(words, n)
-    space = _bits_to_words(n) * 8 + len(R) * 8   # _B + rank dir
-    w.u64(space)                   # Bitvector::_space
+    w.u64(_bitvector_space(n))     # Bitvector::_space
     w.u64(n)
     w.i32(0)                       # _rb
     w.i32(0)                       # _sb
@@ -166,7 +187,7 @@ def _write_wavelet(w, codes, alphabet):
     """Sequence_WaveletTree::Save for a PLAIN-coded alphabet: balanced tree
     built in preorder exactly like BuildTree (Sequence_WaveletTree.hpp:
     104-133); per node (prefix u64, prefixLen i32, children i32[2],
-    Bitvector_Plain with select speed NO)."""
+    Bitvector_Plain with select speed NO).  Returns the tree's _space."""
     codes = np.asarray(codes, dtype=np.uint8)
     n = len(codes)
     if n == 0:
@@ -179,7 +200,7 @@ def _write_wavelet(w, codes, alphabet):
         w.u64(0)                   # _n
         w.i32(0)                   # _tNodeCnt
         w.i32(3)                   # _selectSpeed (default)
-        return
+        return 0
     sigma = len(alphabet)
     code_len = _ref_log2ceil(sigma)
     cap = 1 << code_len
@@ -202,9 +223,10 @@ def _write_wavelet(w, codes, alphabet):
 
     build(codes, 0, 0)
 
-    # Sequence::Save
-    total_space = 0
-    w.u64(total_space)             # Sequence::_space (informational)
+    # Sequence::Save; _space sums each node's Bitvector_Plain::GetSpace()
+    space = sum(_bitvector_space(len(bits)) + _SIZEOF_BITVECTOR_PLAIN
+                for _, _, _, bits in nodes)
+    w.u64(space)                   # Sequence::_space
     w.u64(n)
     _write_alphabet_plain(w, alphabet)
     w.i32(len(nodes))              # _tNodeCnt
@@ -215,6 +237,7 @@ def _write_wavelet(w, codes, alphabet):
         w.i32(children[0])
         w.i32(children[1])
         _write_bitvector_plain(w, bits, select_speed=0)
+    return space
 
 
 def _write_fixed_array(w, vals, l):
@@ -234,23 +257,12 @@ def _write_fixed_array(w, vals, l):
     w.arr(words, "<u8")
 
 
-def _runblock_split(codes, b):
-    """Sequence_RunBlock::Init split (Sequence_RunBlock.hpp:249-358):
-    returns (indicator bits, literal stream, run stream)."""
-    n = len(codes)
-    block_cnt = (max(n, 1) + b - 1) // b
-    pad = block_cnt * b - n
-    padded = np.concatenate([codes, np.full(pad, 255, np.uint8)]) \
-        if pad else codes
-    blocks = padded.reshape(block_cnt, b)
-    valid = np.arange(b)[None, :] < \
-        (n - np.arange(block_cnt)[:, None] * b)
-    first = blocks[:, :1]
-    is_run = np.all((blocks == first) | ~valid, axis=1)
-    run_stream = blocks[is_run, 0]
-    lit_mask = np.repeat(~is_run, b)[:n]
-    lit_stream = codes[lit_mask]
-    return is_run, lit_stream, run_stream
+def _runblock_split(rb):
+    """Sequence_RunBlock::Init split (Sequence_RunBlock.hpp:249-358) as the
+    RunBlockSeq holds it: (indicator bits, literal stream, run stream)."""
+    words = np.ascontiguousarray(rb.indicator.words).view(np.uint8)
+    is_run = np.unpackbits(words, bitorder="little")[:rb.block_cnt].astype(bool)
+    return is_run, rb.lit.decode_all(), rb.run.decode_all()
 
 
 def save_cfr_fm(fm, path):
@@ -266,16 +278,23 @@ def save_cfr_fm(fm, path):
     # Sequence_RunBlock::Save
     rb = fm.bwt
     b = int(rb.b)
-    codes = rb.decode()
-    is_run, lit_stream, run_stream = _runblock_split(codes, b)
-    w.u64(0)                       # Sequence::_space
+    is_run, lit_stream, run_stream = _runblock_split(rb)
+    trees = _W()
+    # Sequence::_space: the indicator's bytes, and for each wavelet tree its
+    # _space and its alphabet's bytes less the tree object (an empty tree,
+    # never initialised, counts minus the object alone)
+    space = _bitvector_space(len(is_run))
+    for stream in (lit_stream, run_stream):
+        space += _write_wavelet(trees, stream, alphabet) - _SIZEOF_WAVELET_TREE
+        if len(stream):
+            space += len(alphabet)
+    w.u64(space & _U64)            # Sequence::_space (a size_t: wraps below 0)
     w.u64(fm.n)
     _write_alphabet_plain(w, alphabet)
     w.u64(b)                       # _b (b==1 sentinel already stored as n)
     w.u64(len(is_run))             # _blockCnt
     _write_bitvector_plain(w, is_run, select_speed=0)
-    _write_wavelet(w, lit_stream, alphabet)
-    _write_wavelet(w, run_stream, alphabet)
+    w.raw(trees.data())
 
     _write_alphabet_plain(w, alphabet)   # FMIndex::_alphabets
     _write_alphabet_plain(w, alphabet)   # _plainAlphabetCoder

@@ -2,9 +2,10 @@
 """FASTA/FASTQ streaming: multi-file, gzip, stdin '-', glob expansion,
 interleaved pairs, sample-sheet sentinel reads.
 
-Mirrors ReadFiles (reference ReadFiles.hpp): read-id '/1' '/2' suffix stripping
-(:82-90), wildcard glob expansion (:139-172), interleaved mode, and the
-special sentinel read injected between files for sample sheets (:195-200).
+Mirrors ReadFiles (reference ReadFiles.hpp): ids and comments split as
+kseq.h splits a header, read-id '/1' '/2' suffix stripping (:82-90),
+wildcard glob expansion (:139-172), interleaved mode, and the special
+sentinel read injected between files for sample sheets (:195-200).
 """
 
 import glob as _glob
@@ -42,6 +43,18 @@ def _strip_pair_suffix(rid):
     return rid
 
 
+def _split_header(line):
+    """kseq.h's name and comment of a header line without its '@' or '>':
+    the name is the bytes up to the first space or tab (so a line that starts
+    with one has the name ""), the comment the rest of the line after that one
+    separator (None where there is no separator)."""
+    header = line.decode()
+    cut = min((i for i in (header.find(" "), header.find("\t")) if i >= 0),
+              default=len(header))
+    comment = header[cut + 1:] if cut < len(header) else None
+    return _strip_pair_suffix(header[:cut]), comment
+
+
 def parse_fastx(stream):
     """Yield Read objects from a FASTA or FASTQ byte stream."""
     line = stream.readline()
@@ -51,10 +64,7 @@ def parse_fastx(stream):
             line = stream.readline()
             continue
         if line.startswith(b"@"):  # fastq (sequence/quality may span lines, kseq.h)
-            header = line[1:].decode()
-            parts = header.split(None, 1)
-            rid = _strip_pair_suffix(parts[0]) if parts else ""
-            comment = parts[1] if len(parts) > 1 else None
+            rid, comment = _split_header(line[1:])
             chunks = []
             line = stream.readline()
             while line and not line.startswith(b"+"):
@@ -74,10 +84,7 @@ def parse_fastx(stream):
             yield Read(rid, comment, seq, qual)
             line = stream.readline()
         elif line.startswith(b">"):  # fasta (possibly multi-line)
-            header = line[1:].decode()
-            parts = header.split(None, 1)
-            rid = _strip_pair_suffix(parts[0]) if parts else ""
-            comment = parts[1] if len(parts) > 1 else None
+            rid, comment = _split_header(line[1:])
             chunks = []
             line = stream.readline()
             while line and not line.startswith(b">") and not line.startswith(b"@"):

@@ -1,4 +1,5 @@
-// Port copy of centrifuger_tpu/native/sa_chunked.cpp (host code, no accelerator).
+// Port of centrifuger_tpu/native/sa_chunked.cpp (host code, no accelerator);
+// its chunk sort places positions in the caller's buffer (no per-batch copies).
 // Memory-bounded, multi-threaded, chunked suffix-array construction.
 //
 // The reference builds large suffix arrays blockwise under a --build-mem
@@ -306,7 +307,8 @@ void sac_kmer_hist(void* h, int32_t k, int64_t* out /* size (1<<bits*k) */) {
 // classify every suffix into the batch's consecutive k-mer ranges
 // [lo[i], hi[i]) and sort each chunk. Results packed into `out` with
 // offsets[i]..offsets[i+1] per chunk. Returns total count, or -1 if cap
-// exceeded.
+// exceeded. Two scans of the text (count, then place) put every position
+// straight into `out`, so a batch needs no memory beyond `out` itself.
 int64_t sac_sort_chunks(void* h, int32_t k, const uint64_t* lo,
                         const uint64_t* hi, int32_t nchunks, int32_t threads,
                         int64_t* out, int64_t cap, int64_t* offsets) {
@@ -315,22 +317,22 @@ int64_t sac_sort_chunks(void* h, int32_t k, const uint64_t* lo,
   const int32_t bits = S->bits;
   const uint64_t LO = lo[0], HI = hi[nchunks - 1];
   if (threads < 1) threads = 1;
+  const int64_t per = (n + threads - 1) / threads;
 
-  // parallel classification scan (each thread walks a text range backward,
-  // seeding the rolling key from beyond its range)
-  std::vector<std::vector<std::vector<int64_t>>> tl(
-      threads, std::vector<std::vector<int64_t>>(nchunks));
-  {
+  // each thread walks a text range backward, seeding the rolling key from
+  // beyond its range; place == false counts into next[t][i], place == true
+  // writes each position at next[t][i]++
+  std::vector<std::vector<int64_t>> next(threads,
+                                         std::vector<int64_t>(nchunks, 0));
+  auto scan = [&](bool place) {
     std::vector<std::thread> ts;
-    int64_t per = (n + threads - 1) / threads;
     for (int32_t t = 0; t < threads; t++) {
-      ts.emplace_back([&, t]() {
+      ts.emplace_back([&, t, place]() {
         int64_t beg = (int64_t)t * per;
         int64_t end = std::min(n, beg + per);
         if (beg >= end) return;
-        auto& mine = tl[t];
+        int64_t* mine = next[t].data();
         uint64_t key = 0;
-        // seed from positions [end, end+k)
         for (int64_t p = std::min(n, end + k) - 1; p >= end; p--)
           key = ((uint64_t)S->codes[p] << (bits * (k - 1))) | (key >> bits);
         for (int64_t p = end - 1; p >= beg; p--) {
@@ -338,52 +340,43 @@ int64_t sac_sort_chunks(void* h, int32_t k, const uint64_t* lo,
           if (key < LO || key >= HI) continue;
           // chunk = first i with key < hi[i]
           int32_t i = (int32_t)(std::upper_bound(hi, hi + nchunks, key) - hi);
-          mine[i].push_back(p);
+          if (place) out[mine[i]++] = p;
+          else mine[i]++;
         }
       });
     }
     for (auto& t : ts) t.join();
-  }
+  };
+  scan(false);
 
-  // per-chunk concat (preserve nothing; order irrelevant pre-sort)
-  std::vector<std::vector<int64_t>> chunks(nchunks);
+  // chunk i holds thread 0's positions, then thread 1's, ...
   int64_t total = 0;
   for (int32_t i = 0; i < nchunks; i++) {
-    int64_t csz = 0;
-    for (int32_t t = 0; t < threads; t++) csz += (int64_t)tl[t][i].size();
-    chunks[i].reserve(csz);
+    offsets[i] = total;
     for (int32_t t = 0; t < threads; t++) {
-      chunks[i].insert(chunks[i].end(), tl[t][i].begin(), tl[t][i].end());
-      tl[t][i].clear();
-      tl[t][i].shrink_to_fit();
+      int64_t c = next[t][i];
+      next[t][i] = total;
+      total += c;
     }
-    total += csz;
   }
+  offsets[nchunks] = total;
   if (total > cap) return -1;
+  scan(true);
 
-  // concurrent chunk sorts
+  // concurrent chunk sorts, in place
   {
-    std::atomic<int32_t> next(0);
+    std::atomic<int32_t> nx(0);
     auto work = [&]() {
       int32_t i;
-      while ((i = next.fetch_add(1)) < nchunks) {
-        mkq_sort(*S, chunks[i].data(), (int64_t)chunks[i].size(), 0, S->v);
+      while ((i = nx.fetch_add(1)) < nchunks) {
+        mkq_sort(*S, out + offsets[i], offsets[i + 1] - offsets[i], 0, S->v);
       }
     };
     std::vector<std::thread> ts;
     for (int32_t t = 0; t < threads; t++) ts.emplace_back(work);
     for (auto& t : ts) t.join();
   }
-
-  int64_t off = 0;
-  for (int32_t i = 0; i < nchunks; i++) {
-    offsets[i] = off;
-    std::memcpy(out + off, chunks[i].data(),
-                chunks[i].size() * sizeof(int64_t));
-    off += (int64_t)chunks[i].size();
-  }
-  offsets[nchunks] = off;
-  return off;
+  return total;
 }
 
 }  // extern "C"

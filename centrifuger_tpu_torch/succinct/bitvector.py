@@ -24,13 +24,12 @@ class Bitvector:
     @classmethod
     def from_bits(cls, bits):
         """bits: boolean/0-1 array."""
-        bits = np.asarray(bits).astype(bool)
+        bits = np.asarray(bits, dtype=bool)
         n = len(bits)
         nwords = div_ceil(max(n, 1), 32)
-        padded = np.zeros(nwords * 32, dtype=bool)
-        padded[:n] = bits
-        words = np.packbits(padded.reshape(nwords, 32), axis=1, bitorder="little")
-        words = words.view(np.uint32).reshape(nwords)
+        packed = np.zeros(nwords * 4, dtype=np.uint8)   # no bool copy of the bits
+        packed[:div_ceil(n, 8)] = np.packbits(bits, bitorder="little")
+        words = packed.view(np.uint32)
         ngrp = div_ceil(nwords, RANK_WORDS) + 1
         cum = np.zeros(ngrp, dtype=np.int64)
         wcnt = np.bitwise_count(words).astype(np.int64)

@@ -1,4 +1,5 @@
-# Port copy of centrifuger_tpu.succinct.packed (host code, no accelerator).
+# Port copy of centrifuger_tpu.succinct.packed (host code, no accelerator);
+# its builders run in pieces of PIECE symbols.
 """Bit-packed symbol sequences with occurrence checkpoints — the TPU-native
 replacement for the reference's wavelet trees.
 
@@ -16,6 +17,8 @@ import numpy as np
 from ..utils import div_ceil
 
 OCC_BLOCK = 256  # symbols per occurrence checkpoint
+PIECE = 1 << 20  # symbols a step of the builders below (their temporaries
+                 # stay a few MB whatever the sequence's length)
 
 
 def width_for_sigma(sigma):
@@ -32,12 +35,17 @@ def pack_codes(codes, width):
     (reference compactds/Utils.hpp:197-242 BitsRead/BitsWrite)."""
     per_word = 32 // width
     n = len(codes)
-    nwords = div_ceil(max(n, 1), per_word)
-    padded = np.zeros(nwords * per_word, dtype=np.uint64)
-    padded[:n] = codes
-    shifts = (np.arange(per_word, dtype=np.uint64) * width)
-    words = padded.reshape(nwords, per_word) << shifts[None, :]
-    return np.bitwise_or.reduce(words, axis=1).astype(np.uint32)
+    words = np.zeros(div_ceil(max(n, 1), per_word), dtype=np.uint32)
+    shifts = np.arange(per_word, dtype=np.uint32) * np.uint32(width)
+    step = PIECE // per_word * per_word
+    for s in range(0, n, step):
+        piece = codes[s:s + step]
+        m = div_ceil(len(piece), per_word)
+        padded = np.zeros(m * per_word, dtype=np.uint32)
+        padded[:len(piece)] = piece
+        words[s // per_word:s // per_word + m] = np.bitwise_or.reduce(
+            padded.reshape(m, per_word) << shifts[None, :], axis=1)
+    return words
 
 
 def _match_mask(words, c, width):
@@ -97,13 +105,17 @@ class PackedSeq:
         words = pack_codes(codes, width)
         nblk = div_ceil(max(n, 1), OCC_BLOCK) + 1
         occ = np.zeros((nblk, sigma), dtype=np.int64)
-        if n > 0:
-            pad = (nblk - 1) * OCC_BLOCK - n
-            cp = np.concatenate([codes, np.full(pad, 255, np.uint8)]) \
-                .reshape(nblk - 1, OCC_BLOCK)
-            counts = np.stack([(cp == c).sum(axis=1, dtype=np.int64)
-                               for c in range(sigma)], axis=1)
-            occ[1:] = np.cumsum(counts, axis=0)
+        step = PIECE // OCC_BLOCK * OCC_BLOCK
+        for s in range(0, n, step):      # per-block counts, then their prefix sums
+            piece = codes[s:s + step]
+            nb = div_ceil(len(piece), OCC_BLOCK)
+            cp = np.full(nb * OCC_BLOCK, 255, np.uint8)
+            cp[:len(piece)] = piece
+            cp = cp.reshape(nb, OCC_BLOCK)
+            b0 = 1 + s // OCC_BLOCK
+            for c in range(sigma):
+                occ[b0:b0 + nb, c] = (cp == c).sum(axis=1, dtype=np.int64)
+        np.cumsum(occ[1:], axis=0, out=occ[1:])
         return cls(n, sigma, width, words, occ)
 
     def access(self, idx):
@@ -118,8 +130,12 @@ class PackedSeq:
         ~10x faster than access(arange(n)) for whole-stream decodes)."""
         shifts = (np.arange(self.per_word, dtype=np.uint32) * self.width)
         mask = np.uint32((1 << self.width) - 1)
-        out = ((self.words[:, None] >> shifts[None, :]) & mask) \
-            .astype(np.uint8).reshape(-1)
+        out = np.empty(len(self.words) * self.per_word, np.uint8)
+        step = PIECE // self.per_word
+        for w in range(0, len(self.words), step):
+            words = self.words[w:w + step]
+            out[w * self.per_word:(w + len(words)) * self.per_word] = \
+                ((words[:, None] >> shifts[None, :]) & mask).reshape(-1)
         return out[:self.n]
 
     def rank_inclusive(self, c, idx):

@@ -102,12 +102,20 @@ Phases (any failure exits non-zero and prints no result):
      kernel against its twin.
   L. the chunked build of phase 2 (about 16 chunks of at most 2^22
      suffixes, so the ~10% state checkpoint is written; the rowmap captured,
-     as its 12 bytes a symbol fit the budget): its .fm.npz and .rowmap.npz
-     arrays equal the main index's; its four .cfr files, copied to a prefix
-     of their own, read back through the port's reader (the main index's n,
-     first_isa, sampled SA, BWT and lengths; no rowmap) and classify the
-     first 8,192 main pairs on cuda to the head of the main path's TSV,
-     K1-K5 launched and K2 by LF walk; the .cfr write and read seconds.
+     its 4 bytes a symbol within the budget): its peak RSS growth over the
+     build's start (the .cfr write included) within --build-mem 2G, with the
+     bmax it chose; its .fm.npz and .rowmap.npz arrays equal the main
+     index's; a DB of the main DB's first two genomes built chunked with
+     --checkpoint --bmax 262144, stopped after its first state checkpoint
+     and run again at --bmax 524288 (it starts afresh: another chunk plan),
+     its arrays equal that DB's SA-IS build's; the port's builds of the
+     tiny and small fixtures written by its .cfr writer, byte for byte the
+     reference-built refidx.1.cfr; the main build's four .cfr files, copied
+     to a prefix of their own, read back through the port's reader (the
+     main index's n, first_isa, sampled SA, BWT and lengths; no rowmap) and
+     classify the first 8,192 main pairs on cuda to the head of the main
+     path's TSV, K1-K5 launched and K2 by LF walk; the .cfr write and read
+     seconds.
   M. the main path's 65,536-pair TSV through cfr-quant-torch -x main in
      formats 0-3 (-c file, the native ingest, equal to -c -, the line
      loop; each run's seconds), cfr-kreport-torch with and without --no-lca
@@ -220,6 +228,8 @@ K0_PAIRS = 8192                       # path E: -k 0 on the first pairs
 OFFSET = 5 * 2 ** 32 + 12345          # path D: the offset-rows constant O
 CHUNKED_BUILD = ["-t", "8", "--build-mem", "2G", "--bmax", "4194304", "--checkpoint",
                  "--emit-cfr"]        # path L: the main DB through the chunked builder
+CHUNKED_BUDGET_MB = 2048              # path L: the --build-mem above, in MB
+RESUME_BMAX = (262144, 524288)        # path L: the resume check's two --bmax
 INSPECT_FLAGS = ("--summary", "--conversion-table", "--taxonomy-tree", "--name-table",
                  "--size-table", "--index-size")
 SUCCINCT_QUERIES = 65536              # path N: rank / access of the BWT, PartialSum searches
@@ -474,28 +484,37 @@ def build(fx_dir, prefix, log, extra=()):
 def peak_rss_mb():
     """Starts a thread that samples this process's resident set size from
     /proc/self/statm every 20 ms; returns a function that gives the peak so
-    far in MB, or None where statm cannot be read.  Neither getrusage's
-    ru_maxrss (it survives the exec of a spawned child, which then reads its
-    parent's high-water mark) nor VmHWM (absent from the chip machine's
-    /proc) measures the child's own peak."""
+    far in MB, or None where statm cannot be read.  The function's
+    reset=True returns the current RSS instead and restarts the peak from it.
+    Neither getrusage's ru_maxrss (it survives the exec of a spawned child,
+    which then reads its parent's high-water mark) nor VmHWM (absent from
+    the chip machine's /proc) measures the child's own peak."""
     import threading
     page = os.sysconf("SC_PAGE_SIZE")
     peak = [0]
 
-    def sample():
+    def now():
         with open("/proc/self/statm") as f:
-            peak[0] = max(peak[0], int(f.read().split()[1]) * page)
+            return int(f.read().split()[1]) * page
+
+    def sample():
+        peak[0] = max(peak[0], now())
     try:
         sample()
     except (OSError, ValueError, IndexError):
-        return lambda: None
+        return lambda reset=False: None
 
     def run():
         while True:
             sample()
             time.sleep(0.02)
     threading.Thread(target=run, daemon=True).start()
-    return lambda: peak[0] / 2 ** 20
+
+    def read(reset=False):
+        if reset:
+            peak[0] = now()
+        return peak[0] / 2 ** 20
+    return read
 
 
 def mb_text(mb):
@@ -506,9 +525,10 @@ def make_database(kind, size, seed):
     """One synthetic database with its reads and index under WORK/<kind>
     (run in a process of its own, beside the others).  Kind "chunked" is the
     main DB's genomes again (the same seed), no reads, indexed by the chunked
-    builder with --emit-cfr (path L).  Writes times.json: the data and build
-    seconds, the .cfr write seconds, and the process's peak RSS after the
-    data and after the build (peak_rss_mb)."""
+    builder with --emit-cfr (path L), then the resume check (resume_check).
+    Writes times.json: the data and build seconds, the .cfr write seconds,
+    the process's peak RSS after the data and after the build, its RSS at
+    the build's start and its peak from there (peak_rss_mb)."""
     rss_mb = peak_rss_mb()
     d = os.path.join(WORK, kind)
     os.makedirs(d)
@@ -538,16 +558,66 @@ def make_database(kind, size, seed):
             save(*a, **k)
             times["cfr_write_s"] = time.time() - t
         cfr_write.save_cfr_index = timed_save
+        os.makedirs(os.path.join(d, "resume"))              # the resume check's DB
+        write_db(genomes[:2], os.path.join(d, "resume"))
+        times["resume_nt"] = sum(len(g) for g in genomes[:2])
     genomes = proteomes = None    # freed before the build: its peak is mostly its own
     gc.collect()
     t1 = time.time()
-    times.update(data_s=t1 - t0, rss_data_mb=rss_mb())
+    times.update(data_s=t1 - t0, rss_data_mb=rss_mb(), rss_start_mb=rss_mb(reset=True))
     with open(os.path.join(OUT, "build_%s.txt" % kind), "w") as log:
         build(d, os.path.join(d, "db"), log, extra)
     times.update(build_s=time.time() - t1 - times.get("cfr_write_s", 0.0),
-                 rss_peak_mb=rss_mb())
+                 rss_build_peak_mb=rss_mb())
+    times["rss_peak_mb"] = None if times["rss_build_peak_mb"] is None else \
+        max(times["rss_data_mb"], times["rss_build_peak_mb"])   # the whole process's peak
+    if kind == "chunked":
+        times.update(resume_check(os.path.join(d, "resume")))
     with open(os.path.join(d, "times.json"), "w") as f:
         json.dump(times, f)
+
+
+def resume_check(d):
+    """Path L's resume check on a DB of the main DB's first two genomes: a
+    chunked --checkpoint build at --bmax RESUME_BMAX[0], interrupted just
+    after its first state checkpoint, then run again at --bmax
+    RESUME_BMAX[1]; against the DB's SA-IS build.  Returns what the phase-2
+    report prints."""
+    from centrifuger_tpu_torch.fm import builder
+    out = {}
+    logs = {}
+    state = os.path.join(d, "chunked_checkpoint_state.npz")
+    real_add = builder._StreamAccum.add
+
+    def add(self, row0, sa):        # stop the build once its state file exists
+        real_add(self, row0, sa)
+        if os.path.exists(state):
+            raise KeyboardInterrupt("path L: interrupted after the first state checkpoint")
+    for name, extra in (("sais", []),
+                        ("interrupted", ["-t", "8", "--bmax", str(RESUME_BMAX[0]),
+                                         "--checkpoint"]),
+                        ("resumed", ["-t", "8", "--bmax", str(RESUME_BMAX[1]),
+                                     "--checkpoint"])):
+        logs[name] = io.StringIO()
+        t0 = time.time()
+        builder._StreamAccum.add = add if name == "interrupted" else real_add
+        try:
+            build(d, os.path.join(d, "sais" if name == "sais" else "chunked"), logs[name], extra)
+        except KeyboardInterrupt:
+            out["resume_stopped"] = name
+        finally:
+            builder._StreamAccum.add = real_add
+        out["resume_%s_s" % name] = time.time() - t0
+        with open(os.path.join(OUT, "build_resume_%s.txt" % name), "w") as f:
+            f.write(logs[name].getvalue())
+    fresh = re.findall(r"\] (checkpoint state [^\n]*; starting fresh)",
+                       logs["resumed"].getvalue())
+    ckpt = re.findall(r"\] (checkpoint at chunk \d+/\d+)", logs["interrupted"].getvalue())
+    out.update(resume_interrupted=ckpt, resume_fresh=fresh,
+               resume_equal=all(same_arrays(os.path.join(d, "sais" + ext),
+                                            os.path.join(d, "chunked" + ext))
+                                for ext in (".fm.npz", ".rowmap.npz")))
+    return out
 
 
 LOAD_S = []   # index-load seconds of each classify() run (load_index + the classifier)
@@ -1107,9 +1177,34 @@ def same_arrays(a, b):
         all(np.array_equal(za[k], zb[k]) for k in za.files)
 
 
+def cfr_fixture_bytes(log):
+    """Path L: the port's build of tiny and small, written by its .cfr
+    writer, gives the fixtures' reference-built refidx.1.cfr byte for byte."""
+    from centrifuger_tpu_torch.build import build_index
+    from centrifuger_tpu_torch.interop.cfr_write import save_cfr_fm
+    for fx in ("tiny", "small"):
+        d = os.path.join(FX, fx)
+        out = os.path.join(WORK, "cfr_bytes_" + fx)
+        t0 = time.time()
+        with contextlib.redirect_stderr(log):
+            fm, _, _ = build_index([os.path.join(d, "ref.fa")], os.path.join(d, "nodes.dmp"),
+                                   os.path.join(d, "names.dmp"),
+                                   os.path.join(d, "ref_seqid.map"),
+                                   conversion_at_file_level=False, output_prefix=out)
+        save_cfr_fm(fm, out + ".1.cfr")
+        with open(out + ".1.cfr", "rb") as a, open(os.path.join(d, "refidx.1.cfr"), "rb") as b:
+            got, want = a.read(), b.read()
+        if got != want:
+            fail("path L: the .1.cfr written for %s differs from the reference-built "
+                 "refidx.1.cfr" % fx)
+        say("path L: %s: the port's build written by its .cfr writer equals the "
+            "reference-built refidx.1.cfr (%d bytes), %.2f s" % (fx, len(got), time.time() - t0))
+
+
 def phase_chunked(prefixes, k0_dir, want, log):
     """Path L: the main DB's genomes built by the chunked builder (phase 2,
-    CHUNKED_BUILD) give the main index's .fm.npz and .rowmap.npz arrays; its
+    CHUNKED_BUILD) give the main index's .fm.npz and .rowmap.npz arrays; the
+    writer gives the fixtures' reference bytes (cfr_fixture_bytes); its
     four .cfr files, copied to a prefix of their own, load through the port's
     reader (the main index's n, first_isa, sampled SA, BWT and lengths, no
     rowmap) and classify the first K0_PAIRS pairs on the card to the head of
@@ -1122,6 +1217,7 @@ def phase_chunked(prefixes, k0_dir, want, log):
             fail("path L: the chunked build's %s differs from the main index's" % ext)
     say("path L: the chunked build's .fm.npz and .rowmap.npz arrays equal the main "
         "(SA-IS) index's")
+    cfr_fixture_bytes(log)
     only = os.path.join(WORK, "cfr_only", "db")
     os.makedirs(os.path.dirname(only))
     for part in (1, 2, 3, 4):
@@ -2257,8 +2353,35 @@ def main():
                          "or .cfr files (chiprun_out/build_chunked.txt)")
                 say("phase 2: path L: %s (%s): %s chunks, %d state checkpoints; "
                     ".cfr written in %.2f s" % (" ".join(CHUNKED_BUILD), re.search(
-                        r"build-mem \d+: using bmax=\d+", build_log).group(0),
+                        r"build-mem \d+: using bmax=\d+.*", build_log).group(0),
                         plan.group(1), ckpts, times["cfr_write_s"]))
+                growth = None if times["rss_build_peak_mb"] is None else \
+                    times["rss_build_peak_mb"] - times["rss_start_mb"]
+                rowmap = os.path.exists(prefixes[kind] + ".rowmap.npz")
+                say("phase 2: path L: peak RSS growth over the build's start %s (RSS %s at "
+                    "the start, peak %s; the process's peak after its data %s) against "
+                    "--build-mem %d MB; bmax %s; rowmap captured: %s; build %.1f s (.cfr "
+                    "write included in the RSS, not in the seconds)"
+                    % (mb_text(growth), mb_text(times["rss_start_mb"]),
+                       mb_text(times["rss_build_peak_mb"]), mb_text(times["rss_data_mb"]),
+                       CHUNKED_BUDGET_MB, re.search(r"using bmax=(\d+)", build_log).group(1),
+                       rowmap, times["build_s"]))
+                if growth is None or growth > CHUNKED_BUDGET_MB or not rowmap:
+                    fail("path L: the chunked build's peak RSS growth %s is over --build-mem "
+                         "%d MB, or not measured, or it captured no rowmap"
+                         % (mb_text(growth), CHUNKED_BUDGET_MB))
+                if times.get("resume_stopped") != "interrupted" or \
+                        not times["resume_interrupted"] or len(times["resume_fresh"]) != 1 \
+                        or not times["resume_equal"]:
+                    fail("path L: the resume check under another --bmax failed: %r"
+                         % {k: v for k, v in times.items() if k.startswith("resume")})
+                say("phase 2: path L: resume check on the first two genomes (%d nt): SA-IS "
+                    "build %.2f s; chunked --checkpoint --bmax %d stopped after its first "
+                    "state checkpoint (%s) in %.2f s; rerun at --bmax %d: \"%s\", %.2f s; "
+                    ".fm.npz and .rowmap.npz arrays equal the SA-IS build's"
+                    % (times["resume_nt"], times["resume_sais_s"], RESUME_BMAX[0],
+                       times["resume_interrupted"][0], times["resume_interrupted_s"],
+                       RESUME_BMAX[1], times["resume_fresh"][0], times["resume_resumed_s"]))
         say("sizes: main %d nt; protein %d aa; ftab12 %d nt (ftab %d entries); %d / %d / "
             "%d read pairs" % (args.db_nt, args.db_aa,
                                args.db_nt // N_GENOMES * FTAB12_GENOMES, 4 ** 12,

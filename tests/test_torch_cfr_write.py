@@ -1,7 +1,10 @@
 """The port's .cfr writer (interop/cfr_write.py, cfr-build-torch --emit-cfr)
-against the JAX package's writer on the same index: the same .1/.2/.3.cfr
-bytes, the same .4.cfr but for its build_date; the port's reader loads what
-it wrote, and the CLI classifies a .cfr-only prefix to the goldens."""
+against the reference-built fixtures and the JAX package's writer: the
+.1.cfr of the port's own build equals tests/fixtures/*/refidx.1.cfr byte for
+byte (the JAX writer differs at the offsets recorded below), the .2/.3.cfr
+bytes and the .4.cfr but for its build_date equal the JAX writer's; the
+port's reader loads what it wrote, and the CLI classifies a .cfr-only prefix
+to the goldens."""
 
 import contextlib
 import io
@@ -14,6 +17,36 @@ import pytest
 from conftest import FIXTURE_DIR
 from test_golden_classify import assert_tsv_equal
 from test_torch_golden import port_index
+
+# The offsets at which the JAX writer's .1.cfr of the same index differs from
+# the reference-built refidx.1.cfr: the low two bytes of the `_space` fields
+# of Sequence_RunBlock (offset 25) and of each non-empty wavelet tree, which
+# it writes as 0, and in tiny the rank9 sub-block words of the two final
+# one-word blocks, which it fills and the reference leaves 0.
+JAX_WRITER_DIFFS = {
+    "tiny": [25, 26, 4197, 4198] + list(range(8025, 8033)) + [10421, 10422]
+    + [14321, 14322, 14323, 14324, 14325, 14327, 14328],
+    "small": [25, 26, 11077, 11078, 29085, 29086],
+    "tiny_single": [25, 26, 1709, 1710],
+}
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _diff_offsets(a, b):
+    assert len(a) == len(b)
+    return np.flatnonzero(np.frombuffer(a, np.uint8) != np.frombuffer(b, np.uint8)).tolist()
+
+
+def _assert_reference_bytes(ours, theirs, fx):
+    """`ours` (.1.cfr) equals the fixture's reference-built file; `theirs`,
+    the JAX writer's, differs from it exactly at JAX_WRITER_DIFFS[fx]."""
+    ref = _read(os.path.join(FIXTURE_DIR, fx, "refidx.1.cfr"))
+    assert _read(ours) == ref
+    assert _diff_offsets(_read(theirs), ref) == JAX_WRITER_DIFFS[fx]
 
 
 def _write_both(prefix, out_dir):
@@ -40,13 +73,32 @@ def _meta_lines(path):
 @pytest.mark.parametrize("fx", ["tiny", "small", "tiny_single"])
 def test_writer_bytes_match_jax_writer(tmp_path_factory, tmp_path, fx):
     ours, theirs = _write_both(port_index(fx, tmp_path_factory), str(tmp_path))
-    for part in (1, 2, 3):
+    _assert_reference_bytes(ours + ".1.cfr", theirs + ".1.cfr", fx)
+    for part in (2, 3):
         with open("%s.%d.cfr" % (ours, part), "rb") as a, \
                 open("%s.%d.cfr" % (theirs, part), "rb") as b:
             assert a.read() == b.read(), part
     assert _meta_lines(ours + ".4.cfr") == _meta_lines(theirs + ".4.cfr")
     with open(ours + ".4.cfr") as f:
         assert f.read().splitlines()[-1].startswith("build_date\t")
+
+
+@pytest.mark.parametrize("fx", ["tiny", "small", "tiny_single"])
+def test_writer_bytes_match_the_reference_file(tmp_path, fx):
+    """save_cfr_fm on the index build_index returns (no reload) writes the
+    fixture's reference-built refidx.1.cfr byte for byte."""
+    from centrifuger_tpu_torch.build import build_index
+    from centrifuger_tpu_torch.interop.cfr_write import save_cfr_fm
+    d = os.path.join(FIXTURE_DIR, fx)
+    with contextlib.redirect_stderr(io.StringIO()):
+        fm, _, _ = build_index([os.path.join(d, "ref.fa")], os.path.join(d, "nodes.dmp"),
+                               os.path.join(d, "names.dmp"), os.path.join(d, "ref_seqid.map"),
+                               conversion_at_file_level=False,
+                               output_prefix=str(tmp_path / "idx"))
+    save_cfr_fm(fm, str(tmp_path / "idx.1.cfr"))
+    got, want = _read(str(tmp_path / "idx.1.cfr")), _read(os.path.join(d, "refidx.1.cfr"))
+    assert len(got) == len(want)
+    assert _diff_offsets(got, want) == []
 
 
 def test_writer_bytes_of_a_chunked_build_match(tmp_path):
@@ -128,7 +180,8 @@ def test_emit_cfr_classifies_to_the_goldens(emitted, tag, extra):
 def test_emit_cfr_matches_the_jax_writer_on_the_cli_index(emitted, tmp_path):
     prefix, only = emitted
     _, theirs = _write_both(prefix, str(tmp_path))
-    for part in (1, 2, 3):
+    _assert_reference_bytes(only + ".1.cfr", theirs + ".1.cfr", "tiny")
+    for part in (2, 3):
         with open("%s.%d.cfr" % (only, part), "rb") as a, \
                 open("%s.%d.cfr" % (theirs, part), "rb") as b:
             assert a.read() == b.read(), part

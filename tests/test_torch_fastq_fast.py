@@ -49,8 +49,10 @@ READER_CASES = {
 }
 
 
-# the cases the JAX package's tests hold to its general reader as well (a
-# header "@ comment" gives the id "" here and "comment" there, in both packages)
+# the cases the JAX package's tests hold to its general reader as well (in
+# the JAX package a header "@ comment" gives the id "" on the bulk route and
+# "comment" on the object route; the port's object route gives "" as kseq.h
+# does, test_object_route_ids_match_the_bulk_route)
 GENERAL_READER_CASES = ("basic_batches_and_ids", "chunk_boundary_records", "gzip",
                         "mate_suffix_strip", "crlf_stripped", "no_trailing_newline")
 
@@ -83,6 +85,55 @@ def test_bulk_reader_matches_jax(tmp_path, case):
         rf.add_read_file(p)
         assert [(r.id, r.seq.encode()) for r in rf] == \
             [(i, s) for ids, seqs, _, _ in got for i, s in zip(ids, seqs)]
+
+
+def _object_route(path):
+    rf = ReadFiles()
+    rf.add_read_file(path)
+    return [(r.id, r.comment, r.seq.encode()) for r in rf]
+
+
+@pytest.mark.parametrize("case", sorted(READER_CASES))
+def test_object_route_ids_match_the_bulk_route(tmp_path, case):
+    """ReadFiles (the object route) gives the bulk route's ids and reads on
+    every reader case."""
+    text, gz, bs, chunk = READER_CASES[case]
+    p = _write(tmp_path, "r.fq.gz" if gz else "r.fq", text, gz)
+    got = [(rid, seq) for rid, _, seq in _object_route(p)]
+    assert got == [(i, s) for ids, seqs, _, _ in _batches(ff, p, bs, chunk)
+                   for i, s in zip(ids, seqs)]
+
+
+def test_object_route_reads_an_empty_id_as_kseq(tmp_path):
+    """A header "@ onlycomment": kseq.h's name is the bytes up to the first
+    space, "", and its comment the rest of the line. The port's object route
+    gives that and the bulk route's id; the JAX package's object route gives
+    the id "onlycomment" and no comment."""
+    from centrifuger_tpu.io.readers import ReadFiles as JaxReadFiles
+    text, _, bs, chunk = READER_CASES["empty_id_header"]
+    p = _write(tmp_path, "r.fq", text)
+    assert _object_route(p) == [("", None, b"ACGT"), ("", "onlycomment", b"TTTT")]
+    assert [i for ids, _, _, _ in _batches(ff, p, bs, chunk) for i in ids] == ["", ""]
+    jrf = JaxReadFiles()
+    jrf.add_read_file(p)
+    assert [(r.id, r.comment) for r in jrf] == [("", None), ("onlycomment", None)]
+
+
+@pytest.mark.parametrize("header,rid,comment", [
+    ("@r0 some comment", "r0", "some comment"),
+    ("@r1/1", "r1", None),
+    ("@r2/2\tbc:ACGT extra", "r2", "bc:ACGT extra"),
+    ("@r3  two spaces", "r3", " two spaces"),
+    ("@r4 ", "r4", ""),
+    ("@\tlead tab", "", "lead tab"),
+])
+def test_object_route_header_split(tmp_path, header, rid, comment):
+    """kseq.h's split: the name up to the first space or tab, the '/1' '/2'
+    strip on the name, the comment after that one separator."""
+    p = _write(tmp_path, "r.fq", "%s\nACGT\n+\nIIII\n>f%s\nAC\nGT\n" % (header, header[1:]))
+    fq, fa = _object_route(p)
+    assert (fq[0], fq[1]) == (rid, comment)
+    assert (fa[0], fa[1], fa[2]) == ("f" + rid, comment, b"ACGT")
 
 
 @pytest.fixture(scope="module")
