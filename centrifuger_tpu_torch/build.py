@@ -21,6 +21,7 @@ import numpy as np
 
 from .fm.builder import FMBuildParams, build_fm
 from .io.readers import ReadFiles
+from .spans import span
 from .taxonomy import Taxonomy
 from .taxonomy.taxonomy import _file_base_name
 from .utils import make_encode_table, DNA_ALPHABET, PROTEIN_ALPHABET
@@ -223,16 +224,19 @@ def save_index(prefix, fm, tax, seq_length, protein):
 
 
 def load_index(prefix):
+    """(fm, taxonomy, seq lengths, meta) of the index at prefix; its time
+    counts into the process totals as the span load.index (spans.py)."""
     from .fm.index import FMIndexData
-    fm = FMIndexData.load(prefix + ".fm.npz")
-    fm.source_prefix = prefix   # enables the wide-row disk cache (fm/device.py)
-    if os.path.exists(prefix + ".rowmap.npz"):
-        fm.rowmap = np.load(prefix + ".rowmap.npz")["rowmap"]
-    tax = Taxonomy.load(prefix + ".tax.npz")
-    z = np.load(prefix + ".seqlen.npz")
-    seq_length = dict(zip(z["keys"].tolist(), z["vals"].tolist()))
-    with open(prefix + ".meta.json") as f:
-        meta = json.load(f)
+    with span("load.index"):
+        fm = FMIndexData.load(prefix + ".fm.npz")
+        fm.source_prefix = prefix   # enables the wide-row disk cache (fm/device.py)
+        if os.path.exists(prefix + ".rowmap.npz"):
+            fm.rowmap = np.load(prefix + ".rowmap.npz")["rowmap"]
+        tax = Taxonomy.load(prefix + ".tax.npz")
+        z = np.load(prefix + ".seqlen.npz")
+        seq_length = dict(zip(z["keys"].tolist(), z["vals"].tolist()))
+        with open(prefix + ".meta.json") as f:
+            meta = json.load(f)
     return fm, tax, seq_length, meta
 
 

@@ -23,10 +23,22 @@ native parse-and-pack pass a batch) feeding serve_tsv_prepacked, which
 uploads and dispatches on the serving thread and formats on the finish
 workers.
 
+Every batch is numbered at dispatch and timed by stage (spans.py): on the
+serving thread engine.pack, engine.upload and engine.launch (grouped in the
+records under engine.dispatch), engine.finish_wait and engine.unfused; on
+the finish workers finish.pull, finish.fallback and finish.format (grouped
+under finish.batch).  Each batch adds its seconds to stats["<stage>_s"]
+for every stage of STAGES (0 s where it did not run one), one to
+stats["batches"], and its units to stats["fast_units"] /
+["fallback_units"]: the serving thread adds the engine.* stages when it
+hands the batch's result on, the finish worker the finish.* stages and the
+unit counts when its finish ends, each under one lock.
+
 Bit-identical to ClassifierNP / the reference binary; enforced by the golden
 TSV tests.
 """
 
+import itertools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -37,8 +49,14 @@ from .engine_np import ClassifierResult, BWTHit
 from .engine_unfused import ClassifierTorchUnfused, _round_up
 from .device_engine import fused_classify, fused_classify_protein, U_CAP
 from .translate import translate_frames
+from .. import spans
 from ..io.fastq_fast import iter_packed_batches
 from ..utils import COMP_TABLE
+
+ENGINE_STAGES = ("engine.pack", "engine.upload", "engine.launch", "engine.finish_wait",
+                 "engine.unfused")
+FINISH_STAGES = ("finish.pull", "finish.fallback", "finish.format")
+STAGES = ENGINE_STAGES + FINISH_STAGES
 
 
 class ClassifierTorch(ClassifierTorchUnfused):
@@ -52,7 +70,9 @@ class ClassifierTorch(ClassifierTorchUnfused):
         super().__init__(fm, taxonomy, param, protein=protein, dev=dev,
                          device=device, serve_layout=serve_layout,
                          force_idtype=force_idtype)
-        self.stats["fallback_units"] = 0
+        self.stats.update(fallback_units=0, batches=0)
+        self.stats.update((name + "_s", 0.0) for name in STAGES)
+        self._batch_no = itertools.count()
         self._sid_prefix = None
         self._pool = None
 
@@ -127,13 +147,20 @@ class ClassifierTorch(ClassifierTorchUnfused):
             lengths[i] = len(c)
         return codes, lengths, nr, L
 
+    def _tally(self):
+        """A new batch's number and stage seconds (spans.Tally)."""
+        return spans.Tally(STAGES, next(self._batch_no))
+
     def _dispatch_fused(self, queries):
-        if self.protein:
-            codes, lengths, nr, L = self._pack_reads_protein(queries)
-            return self._launch(fused_classify_protein, (self._upload(codes),),
-                                lengths, nr, L, queries)
-        reads, lengths, nr, _ = self._pack_reads(queries)
-        return self._dispatch_packed(reads, lengths, nr, queries)
+        t = self._tally()
+        with t.span("engine.dispatch"):
+            with t.span("engine.pack"):
+                if self.protein:
+                    codes, lengths, nr, _ = self._pack_reads_protein(queries)
+                    reads = (codes,)
+                else:
+                    reads, lengths, nr, _ = self._pack_reads(queries)
+            return self._launch(t, reads, lengths, nr, queries)
 
     def _dispatch_packed(self, reads, lengths, nr, queries):
         """Dispatch from host-packed numpy arrays, reads = (pack2, vmask) as
@@ -141,17 +168,28 @@ class ClassifierTorch(ClassifierTorchUnfused):
         upload and the launch run on the calling (serving) thread, so a
         producer thread that packs never touches a CUDA tensor
         (engine_fused._dispatch_packed).  Nucleotide indexes only."""
-        return self._launch(fused_classify, (self._upload(reads[0]), self._upload(reads[1])),
-                            lengths, nr, reads[0].shape[1] * 4, queries)
+        t = self._tally()
+        with t.span("engine.dispatch"):
+            return self._launch(t, reads, lengths, nr, queries)
 
-    def _launch(self, program, reads, lengths, nr, L, queries):
+    def _launch(self, t, reads, lengths, nr, queries):
+        """Upload a packed batch (reads: (pack2, vmask), or the protein
+        path's (codes,)) and its lengths, and launch the device program;
+        returns the batch's ctx, its tally t in it."""
+        with t.span("engine.upload"):
+            dev_reads = [self._upload(a) for a in (*reads, lengths)]
+        if self.protein:
+            program, L = fused_classify_protein, reads[0].shape[1]
+        else:
+            program, L = fused_classify, reads[0].shape[1] * 4
         mhl = self.param.min_hit_len
         H = max(L // (mhl + 1) + 1, 1)
-        out = program(
-            self.dev, *reads, self._upload(lengths), nr, mhl, H,
-            self.param.max_result, self.param.max_result_per_hit_factor,
-            self.K_OUT, len(queries) * self.U_CAP)
-        return dict(queries=queries, out=out, nr=nr)
+        with t.span("engine.launch"):
+            out = program(
+                self.dev, *dev_reads, nr, mhl, H,
+                self.param.max_result, self.param.max_result_per_hit_factor,
+                self.K_OUT, len(queries) * self.U_CAP)
+        return dict(queries=queries, out=out, nr=nr, t=t)
 
     def _pull_results(self, out):
         """ONE device->host transfer: unpack host_blob (packed + fb_units +
@@ -173,14 +211,16 @@ class ClassifierTorch(ClassifierTorchUnfused):
     def finish_packed(self, ctx):
         """(packed [Q, 5+K] numpy, {unit: ClassifierResult} for the
         fallback units)."""
-        queries, nr = ctx["queries"], ctx["nr"]
-        packed, out = self._pull_results(ctx["out"])
+        queries, nr, t = ctx["queries"], ctx["nr"], ctx["t"]
+        with t.span("finish.pull"):
+            packed, out = self._pull_results(ctx["out"])
         fb_idx = np.flatnonzero((packed[:, 4] != 0) | (packed[:, 3] > self.K_OUT))
-        self.stats["fallback_units"] += int(len(fb_idx))
-        self.stats["fast_units"] += int(len(queries) - len(fb_idx))
+        t.counts.update(fallback_units=int(len(fb_idx)),
+                        fast_units=int(len(queries) - len(fb_idx)))
         fb = {}
-        if len(fb_idx):
-            fb = self._finish_fallback_units(queries, fb_idx, out, nr)
+        with t.span("finish.fallback"):
+            if len(fb_idx):
+                fb = self._finish_fallback_units(queries, fb_idx, out, nr)
         return packed, fb
 
     def _finish_fused(self, ctx):
@@ -295,22 +335,51 @@ class ClassifierTorch(ClassifierTorchUnfused):
     def _unfused_batch(self, queries):
         """A batch the fused program cannot take (-k 0, --hitk-factor 0, a
         read over L_MAX): the non-fused engine on the same device, as
-        ClassifierFused hands it to ClassifierJax."""
-        return super().query_batch(queries)
+        ClassifierFused hands it to ClassifierJax.  One batch of its own,
+        timed as engine.unfused."""
+        t = self._tally()
+        with t.span("engine.unfused"):
+            results = super().query_batch(queries)
+        self._add_stats(t.seconds, STAGES, batches=1)
+        return results
 
     def query_batch(self, queries):
         if not queries:
             return []
         if not self._fused_ok() or self._too_long(queries):
             return self._unfused_batch(queries)
-        return self._finish_fused(self._dispatch_fused(queries))
+        ctx = self._dispatch_fused(queries)
+        results = self._finish(self._finish_fused, ctx)
+        self._add_stats(ctx["t"].seconds, ENGINE_STAGES, batches=1)
+        return results
 
     def _finish_pool(self):
         """Finish-stage workers: batch i's result pull, fallback dispatches
         and TSV formatting overlap batch i+1's upload and device work."""
         if self._pool is None:
-            self._pool = ThreadPoolExecutor(max_workers=4)
+            self._pool = ThreadPoolExecutor(max_workers=4, thread_name_prefix="finish")
         return self._pool
+
+    def _finish(self, fn, ctx, *args):
+        """fn(ctx, *args), a batch's finish (on a finish worker), recorded as
+        finish.batch; then its finish.* seconds and unit counts join stats."""
+        t = ctx["t"]
+        with t.span("finish.batch"):
+            res = fn(ctx, *args)
+        self._add_stats(t.seconds, FINISH_STAGES, **t.counts)
+        return res
+
+    def _submit(self, fn, ctx, *args):
+        """(the batch's tally, the future of its finish on the workers)."""
+        return ctx["t"], self._finish_pool().submit(self._finish, fn, ctx, *args)
+
+    def _collect(self, t, fut):
+        """The finish's result, the wait for it timed as engine.finish_wait;
+        then the batch's engine.* seconds join stats."""
+        with t.span("engine.finish_wait"):
+            res = fut.result()
+        self._add_stats(t.seconds, ENGINE_STAGES, batches=1)
+        return res
 
     def _finish_packed_ctx(self, ctx):
         packed, fb = self.finish_packed(ctx)
@@ -319,42 +388,39 @@ class ClassifierTorch(ClassifierTorchUnfused):
     def query_pipelined_packed(self, batches):
         """Yields (packed, fallback_dict, queries) per batch, in order;
         dispatch and finish overlap across up to PIPELINE_DEPTH batches."""
-        pool = self._finish_pool()
         pend = deque()
         for batch in batches:
             if not batch or not self._fused_ok() or self._too_long(batch):
                 while pend:
-                    yield pend.popleft().result()
+                    yield self._collect(*pend.popleft())
                 if not batch:
                     yield np.zeros((0, 5 + self.K_OUT), np.int32), {}, []
                 else:
                     yield None, dict(enumerate(self._unfused_batch(batch))), batch
                 continue
-            pend.append(pool.submit(self._finish_packed_ctx,
-                                    self._dispatch_fused(batch)))
+            pend.append(self._submit(self._finish_packed_ctx, self._dispatch_fused(batch)))
             if len(pend) >= self.PIPELINE_DEPTH:
-                yield pend.popleft().result()
+                yield self._collect(*pend.popleft())
         while pend:
-            yield pend.popleft().result()
+            yield self._collect(*pend.popleft())
 
     def query_pipelined(self, batches):
         """Yields one result list per batch, in order (engine_fused.
         query_pipelined): batch i's finish and result objects overlap batch
         i+1's upload and device work.  The CLI's per-read-result routes
         (barcodes, UMIs, --un / --cl, sample sheets, --expand-taxid) take it."""
-        pool = self._finish_pool()
         pend = deque()
         for batch in batches:
             if not batch or not self._fused_ok() or self._too_long(batch):
                 while pend:
-                    yield pend.popleft().result()
+                    yield self._collect(*pend.popleft())
                 yield self._unfused_batch(batch) if batch else []
                 continue
-            pend.append(pool.submit(self._finish_fused, self._dispatch_fused(batch)))
+            pend.append(self._submit(self._finish_fused, self._dispatch_fused(batch)))
             if len(pend) >= self.PIPELINE_DEPTH:
-                yield pend.popleft().result()
+                yield self._collect(*pend.popleft())
         while pend:
-            yield pend.popleft().result()
+            yield self._collect(*pend.popleft())
 
     # --------------------------------------------------- bulk FASTQ serving
 
@@ -376,7 +442,8 @@ class ClassifierTorch(ClassifierTorchUnfused):
         """Worker-side finish and TSV formatting of a dispatched batch:
         (lines, classified count, reads)."""
         packed, fb = self.finish_packed(ctx)
-        lines, ncls = self.format_tsv_batch(packed, fb, ctx["queries"], read_ids)
+        with ctx["t"].span("finish.format"):
+            lines, ncls = self.format_tsv_batch(packed, fb, ctx["queries"], read_ids)
         return lines, ncls, len(ctx["queries"])
 
     def serve_tsv_prepacked(self, items):
@@ -387,23 +454,22 @@ class ClassifierTorch(ClassifierTorchUnfused):
         TSV formatting run on the finish workers.  A batch the fused program
         cannot take (-k 0, --hitk-factor 0, a read over L_MAX) goes to the
         non-fused engine, as query_pipelined_packed hands it."""
-        pool = self._finish_pool()
         pend = deque()
         for ids, queries, reads, lengths, nr in items:
             if not self._fused_ok() or int(lengths.max(initial=0)) > self.L_MAX:
                 while pend:
-                    yield pend.popleft().result()
+                    yield self._collect(*pend.popleft())
                 batch = [queries[i] for i in range(len(queries))]
                 lines, ncls = self.format_tsv_batch(
                     None, dict(enumerate(self._unfused_batch(batch))), batch, ids)
                 yield lines, ncls, len(batch)
                 continue
-            ctx = self._dispatch_packed(reads, lengths, nr, queries)
-            pend.append(pool.submit(self.finish_tsv_ctx, ctx, ids))
+            pend.append(self._submit(self.finish_tsv_ctx,
+                                     self._dispatch_packed(reads, lengths, nr, queries), ids))
             if len(pend) >= self.PIPELINE_DEPTH:
-                yield pend.popleft().result()
+                yield self._collect(*pend.popleft())
         while pend:
-            yield pend.popleft().result()
+            yield self._collect(*pend.popleft())
 
     def _tsv_tables(self):
         """Per-seqid TSV fragment "\\t<name>\\t<taxid>\\t"."""

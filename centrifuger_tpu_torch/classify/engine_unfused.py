@@ -25,6 +25,7 @@ Bit-identical to ClassifierNP and to the reference binary; enforced by the
 golden TSV tests.
 """
 
+import threading
 from collections import deque
 
 import numpy as np
@@ -33,6 +34,7 @@ import torch
 from .engine_np import ClassifierNP, ClassifierResult, BWTHit
 from .finalize import finalize_units, finalize_prepare
 from ..fm.device import TorchFM, chain_search_lanes, prefix_search, resolve_rows
+from ..spans import span
 from ..utils import COMP_TABLE
 
 
@@ -65,10 +67,24 @@ class ClassifierTorchUnfused(ClassifierNP):
     def __init__(self, fm, taxonomy, param, protein=False, dev=None,
                  device="cuda", serve_layout="plain", force_idtype=None):
         super().__init__(fm, taxonomy, param, protein=protein)
-        self.dev = dev if dev is not None else \
-            TorchFM.from_index(fm, device, serve_layout, force_idtype)
+        if dev is None:
+            with span("load.device_index"):
+                dev = TorchFM.from_index(fm, device, serve_layout, force_idtype)
+        self.dev = dev
         self.device = self.dev.device
         self.stats = {"fast_units": 0, "slow_units": 0}
+        self._stats_lock = threading.Lock()
+
+    def _add_stats(self, seconds=None, names=(), **counts):
+        """Add counts, and each stage of `names` ("<name>_s" += seconds[name]),
+        to stats under one lock: the fused engine's finish workers add theirs
+        from several threads."""
+        with self._stats_lock:
+            st = self.stats
+            for name in names:
+                st[name + "_s"] += seconds[name]
+            for k, v in counts.items():
+                st[k] += v
 
     # ------------------------------------------------------------- primitives
 
@@ -271,8 +287,7 @@ class ClassifierTorchUnfused(ClassifierNP):
         # dispatch, as the fused engine's flagged units do (reads of 10^4 bp
         # make the host searches minutes long)
         adj_idx = np.flatnonzero(needs_adjust)
-        self.stats["fast_units"] += int(Q - len(adj_idx))
-        self.stats["slow_units"] += int(len(adj_idx))
+        self._add_stats(fast_units=int(Q - len(adj_idx)), slow_units=int(len(adj_idx)))
         if len(adj_idx):
             lanes = np.stack([lane_f1, lane_r1, lane_f2, lane_r2], axis=1)
 

@@ -13,6 +13,10 @@ with `centrifuger`, reference CentrifugerClass.cpp:20-64) and routes, plus
   results   barcodes, UMIs, --expand-taxid, --un / --cl, sample sheets: one
             result object a read (query_pipelined) through ResultWriter
 
+--trace-out PATH keeps a record of the engine's spans (spans.py) and writes
+them as a Chrome trace at the end; the last log line gives the engine's
+stage seconds per read with or without it.
+
 --shards N serves through a sharded index (parallel/sharded.py): N shards
 round-robin over the CUDA devices, all on one card where there is one.
 --n-ranks P / --rank r classify batches r, r + P, ... of the input; the
@@ -33,6 +37,7 @@ from collections import deque
 
 import numpy as np
 
+from .. import spans
 from ..build import load_index, is_protein_index
 from ..classify.params import ClassifierParam
 from ..io.barcode import BarcodeCorrector, BarcodeTranslator
@@ -66,8 +71,9 @@ def make_classifier(fm, tax, param, protein, engine, device="cuda",
         if shard_devices is None and resolve_device(device).type == "cpu":
             shard_devices = ["cpu"]
         # made on the host and cut there; ShardedIndex refuses a layout but plain
-        host = TorchFM(fm_arrays(fm), "cpu", serve_layout, force_idtype)
-        dev = ShardedIndex(host, shards, shard_devices)
+        with spans.span("load.device_index"):
+            host = TorchFM(fm_arrays(fm), "cpu", serve_layout, force_idtype)
+            dev = ShardedIndex(host, shards, shard_devices)
     if engine == "jax":
         from ..classify.engine_unfused import ClassifierTorchUnfused
         return ClassifierTorchUnfused(fm, tax, param, protein=protein, dev=dev,
@@ -137,6 +143,11 @@ def main(argv=None):
                     help="torch device of the index and kernels: cuda (the "
                          "default; raises without a card) or cpu (the plain "
                          "PyTorch versions)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record the engine's spans (index load, each batch's "
+                         "stages on the serving thread and the finish workers) "
+                         "and write them to PATH as a Chrome trace at the end "
+                         "(extension over the reference CLI)")
     args = ap.parse_args(argv)
     if args.n_ranks > 1:
         if not (0 <= args.rank < args.n_ranks):
@@ -145,6 +156,8 @@ def main(argv=None):
             ap.error("--n-ranks is incompatible with --sample-sheet/--un/--cl")
 
     log("Centrifuger(torch) starts.")
+    if args.trace_out:
+        spans.enable()
     cfr = not os.path.exists(args.index + ".fm.npz") and \
         os.path.exists(args.index + ".1.cfr")
     if cfr:
@@ -374,11 +387,28 @@ def main(argv=None):
             f.write("".join("%d\n" % c for c in rank_counts))
     writer.finalize()
     if hasattr(classifier, "stats"):
-        st = classifier.stats
-        log("Device units: %d fast, %d fallback to the exact host path"
-            % (st["fast_units"], st.get("fallback_units", 0) + st.get("slow_units", 0)))
+        log(_units_line(classifier.stats))
+    if args.trace_out:
+        spans.write_chrome_trace(args.trace_out)
+        spans.enable(False)
     log("Centrifuger(torch) finishes.")
     return 0
+
+
+def _units_line(st):
+    """The device units, then the batches and each engine stage's seconds
+    per unit (a read or pair) in microseconds: the serving thread's
+    engine.*, the finish workers' finish.* (classify/engine.py STAGES)."""
+    from ..classify.engine import STAGES
+    fallback = st.get("fallback_units", 0) + st.get("slow_units", 0)
+    line = "Device units: %d fast, %d fallback to the exact host path" % (
+        st["fast_units"], fallback)
+    units = st["fast_units"] + fallback
+    stages = [name for name in STAGES if name + "_s" in st]
+    if units and stages:
+        line += " in %d batches; us a read: %s" % (st["batches"], ", ".join(
+            "%s %.2f" % (name, st[name + "_s"] / units * 1e6) for name in stages))
+    return line
 
 
 def _serve_bulk(classifier, paths, batch_size, mine, writer, rank_counts):

@@ -28,6 +28,7 @@ import numpy as np
 
 from ..fm.index import FMIndexData
 from ..fm.runblock import RunBlockSeq
+from ..spans import span
 from ..taxonomy.taxonomy import Taxonomy
 
 
@@ -459,10 +460,12 @@ def load_cfr_meta(prefix):
 def load_cfr_index(prefix):
     """Load a reference-built index (prefix.{1,2,3}.cfr + metadata).  The FM
     index carries no source_prefix: no wide-row cache is written beside a
-    reference-built index."""
-    meta = load_cfr_meta(prefix)
-    fm = load_cfr_fm(prefix + ".1.cfr",
-                     protein=meta.get("sequence_type") == "amino_acid")
-    tax = load_cfr_taxonomy(prefix + ".2.cfr")
-    seq_length = load_cfr_seq_lengths(prefix + ".3.cfr")
+    reference-built index.  Its time counts into the process totals as the
+    span load.index (spans.py)."""
+    with span("load.index"):
+        meta = load_cfr_meta(prefix)
+        fm = load_cfr_fm(prefix + ".1.cfr",
+                         protein=meta.get("sequence_type") == "amino_acid")
+        tax = load_cfr_taxonomy(prefix + ".2.cfr")
+        seq_length = load_cfr_seq_lengths(prefix + ".3.cfr")
     return fm, tax, seq_length, meta

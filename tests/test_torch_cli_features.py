@@ -317,5 +317,5 @@ def test_parser_accepts_every_jax_option():
     from centrifuger_tpu.cli import classify_cli as jax_cli
     from centrifuger_tpu_torch.cli import classify_cli
     jax_opts, port_opts = option_strings(jax_cli), option_strings(classify_cli)
-    assert port_opts - jax_opts == {"--device"}
+    assert port_opts - jax_opts == {"--device", "--trace-out"}
     assert jax_opts <= port_opts
