@@ -5,8 +5,9 @@ Q read units (nr mates each) the device runs
 
   chain_search    K1 + K4: decode the 2-bit reads into fwd / rc strand lanes
                   and find each lane's semi-maximal exact-match chains
-                  (protein: the host translates, and chain_search_lanes takes
-                  six ready-made amino-acid code lanes a read)
+                  (protein: chain_search_lanes takes six amino-acid code
+                  lanes a read, which translate_lanes, K13, builds on the
+                  card from the mates' bytes)
   finalize_units  K3 (+ K2 inline): strand choice (protein: frame choice
                   first), row expansion, SA resolve, merge chains, record
                   scores, best seqids, flags
@@ -28,6 +29,7 @@ engine (classify/engine_np.py): the tests hold every output array to it.
 import torch
 
 from .. import kernels
+from .translate import TABLE_BYTES, TABLE_FWD, TABLE_REV
 from ..fm.device import (chain_search_lanes, chain_search_lanes_plain, chain_variant,
                          resolve_rows_plain, _check)
 
@@ -64,6 +66,75 @@ def decode_packed_dna(pack2, vmask, lengths):
     code = torch.where((v == 1) & (j < lengths.long()[:, None]), code,
                        torch.full_like(code, 255))
     return _rc_lanes(code, lengths)
+
+
+# ------------------------------------------ K13: six-frame translation
+
+# codes a chunk of translate_lanes_plain builds, each strand: its int32
+# offsets stay some tens of MB whatever the mates' lengths
+PLAIN_CHUNK = 1 << 22
+
+
+def translate_lanes_plain(flat, starts, L, table):
+    """Plain twin of translate_lanes: each byte's forward and reverse class
+    looked up once, then each codon's three classes gathered by int32
+    offsets, PLAIN_CHUNK codes a strand at a time."""
+    dev = flat.device
+    R = starts.shape[0] - 1
+    b = torch.cat([flat.int(), flat.new_zeros(1).int()])    # a last byte for lanes' ends
+    pad = flat.shape[0]
+    fwd, rev = (table.index_select(0, b + at) for at in (TABLE_FWD, TABLE_REV))
+    n = starts[1:] - starts[:-1]
+    frame = torch.arange(3, dtype=torch.int32, device=dev)
+    m = torch.div((n[:, None] - frame).clamp(min=0), 3, rounding_mode="floor").clamp(max=L)
+    col = torch.arange(L, dtype=torch.int32, device=dev)
+    first = frame[:, None] + 3 * col                        # [3, L]: codon col of frame f
+    codes = torch.empty(R, 2, 3, L, dtype=torch.uint8, device=dev)
+    step = max(1, PLAIN_CHUNK // (3 * L))
+    for r0 in range(0, R, step):
+        st, nn = starts[:-1][r0:r0 + step, None, None], n[r0:r0 + step, None, None]
+        valid = col < m[r0:r0 + step, :, None]              # [r, 3, L]
+        # forward: bytes f + 3 col + (0, 1, 2); the reverse complement reads
+        # them from the mate's end, n - 1 - that
+        for strand, (cls, p0, sign) in enumerate(((fwd, st + first, 1),
+                                                  (rev, st + nn - 1 - first, -1))):
+            key = torch.zeros(valid.shape, dtype=torch.int32, device=dev)
+            for k, w in enumerate((25, 5, 1)):
+                idx = torch.where(valid, p0 + sign * k, pad).reshape(-1)
+                key += w * cls.index_select(0, idx).view(valid.shape)
+            code = table.index_select(0, key.reshape(-1)).view(valid.shape)
+            codes[r0:r0 + step, strand] = code.masked_fill_(~valid, 255)
+    return codes.reshape(6 * R, L), m.repeat(1, 2).reshape(-1)
+
+
+def translate_lanes(flat, starts, L, table):
+    """K13 wrapper: flat uint8 [N] (R mates' bytes joined), starts int32
+    [R + 1] (mate r is flat[starts[r]:starts[r + 1]]), table uint8
+    [TABLE_BYTES] (translate.frame_table) -> (codes uint8 [6R, L], lengths
+    int32 [6R]): per mate the forward frames 0..2, then frames 0..2 of its
+    reverse complement, each its whole codons, cut at L, 255 past the end
+    (translate.translate_frames' rules; the lanes fused_classify_protein
+    takes)."""
+    for name, t, dtype in (("flat", flat, torch.uint8), ("starts", starts, torch.int32),
+                           ("table", table, torch.uint8)):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError("translate_lanes: %s must be a contiguous 1-D %s tensor"
+                            % (name, dtype))
+        if t.device != flat.device:
+            raise ValueError("translate_lanes: %s is on %s, flat on %s"
+                             % (name, t.device, flat.device))
+    if starts.shape[0] < 1 or table.shape[0] != TABLE_BYTES or L <= 0 or L % 4:
+        raise ValueError("translate_lanes: want starts [R + 1], table [%d] and L a "
+                         "positive multiple of 4" % TABLE_BYTES)
+    if flat.device.type == "cpu":
+        return translate_lanes_plain(flat, starts, L, table)
+    R = starts.shape[0] - 1
+    codes = torch.empty(6 * R, L, dtype=torch.uint8, device=flat.device)
+    lengths = torch.empty(6 * R, dtype=torch.int32, device=flat.device)
+    if R:
+        kernels.launch_raw("translate_frames", flat.device, flat, starts, table, R, L,
+                           codes, lengths)
+    return codes, lengths
 
 
 # ---------------------------------------------------- K1 + K4: chains

@@ -9,11 +9,11 @@ the flagged units' chains) and formats results.  Units the device flags
 (hit-boundary-adjustment candidates, row-budget overflows, more best seqids
 than it returns) take the exact host path, reusing the device chains, with
 their backward searches (K5) and SA resolves (K2) batched on the device.
-A protein index takes the translated search: the host translates each read
-into six amino-acid code lanes, the device chooses frame and strand, and
-flagged units have no boundary adjustment.  The batches the fused program
-cannot take (-k 0, --hitk-factor 0, a read over L_MAX) go to the non-fused
-engine on the same device.  On an int64 index the flagged units' chains ship
+A protein index takes the translated search: the host joins the mates'
+bytes, the device translates each into six amino-acid code lanes (K13),
+chooses frame and strand, and flagged units have no boundary adjustment.
+The batches the fused program cannot take (-k 0, --hitk-factor 0, a read
+over L_MAX) go to the non-fused engine on the same device.  On an int64 index the flagged units' chains ship
 in the blob as lo and hi int32 words of each int64 (sp, ep, l, off).
 
 Serving loops, as the JAX engine's: query_pipelined_packed (packed results to
@@ -47,8 +47,8 @@ import torch
 
 from .engine_np import ClassifierResult, BWTHit
 from .engine_unfused import ClassifierTorchUnfused, _round_up
-from .device_engine import fused_classify, fused_classify_protein, U_CAP
-from .translate import translate_frames
+from .device_engine import fused_classify, fused_classify_protein, translate_lanes, U_CAP
+from .translate import frame_table, translate_frames
 from .. import spans
 from ..io.fastq_fast import iter_packed_batches
 from ..utils import COMP_TABLE
@@ -75,6 +75,8 @@ class ClassifierTorch(ClassifierTorchUnfused):
         self._batch_no = itertools.count()
         self._sid_prefix = None
         self._pool = None
+        self._frame_table = torch.from_numpy(frame_table(self.encode)).to(self.device) \
+            if protein else None
 
     def _fused_ok(self):
         return self.param.max_result > 0 and \
@@ -147,6 +149,22 @@ class ClassifierTorch(ClassifierTorchUnfused):
             lengths[i] = len(c)
         return codes, lengths, nr, L
 
+    def _pack_reads_protein_flat(self, queries):
+        """queries -> (flat uint8: every mate's bytes joined in unit order,
+        starts int32 [R + 1] the mates' offsets in it, nr, L), R =
+        len(queries) * nr: the fused engine's protein pack, whose lanes the
+        card builds (device_engine.translate_lanes).  An empty or None mate
+        is an empty entry.  nr and L are _pack_reads_protein's: the longest
+        lane is frame 0 of the longest mate."""
+        nr = 2 if any(q[1] is not None for q in queries) else 1
+        raws = [b"" if r is None else r for q in queries for r in q[:nr]]
+        lens = np.fromiter(map(len, raws), np.int32, len(raws))
+        starts = np.zeros(len(raws) + 1, np.int32)
+        np.cumsum(lens, out=starts[1:])
+        flat = np.frombuffer(bytearray(b"".join(raws)), np.uint8)
+        L = max(_round_up(int(lens.max(initial=0)) // 3, 32), 32)
+        return flat, starts, nr, L
+
     def _tally(self):
         """A new batch's number and stage seconds (spans.Tally)."""
         return spans.Tally(STAGES, next(self._batch_no))
@@ -156,11 +174,12 @@ class ClassifierTorch(ClassifierTorchUnfused):
         with t.span("engine.dispatch"):
             with t.span("engine.pack"):
                 if self.protein:
-                    codes, lengths, nr, _ = self._pack_reads_protein(queries)
-                    reads = (codes,)
+                    flat, starts, nr, L = self._pack_reads_protein_flat(queries)
+                    reads = (flat, starts)
                 else:
-                    reads, lengths, nr, _ = self._pack_reads(queries)
-            return self._launch(t, reads, lengths, nr, queries)
+                    (pack2, vmask), lengths, nr, L = self._pack_reads(queries)
+                    reads = (pack2, vmask, lengths)
+            return self._launch(t, reads, nr, L, queries)
 
     def _dispatch_packed(self, reads, lengths, nr, queries):
         """Dispatch from host-packed numpy arrays, reads = (pack2, vmask) as
@@ -170,21 +189,25 @@ class ClassifierTorch(ClassifierTorchUnfused):
         (engine_fused._dispatch_packed).  Nucleotide indexes only."""
         t = self._tally()
         with t.span("engine.dispatch"):
-            return self._launch(t, reads, lengths, nr, queries)
+            return self._launch(t, (*reads, lengths), nr, reads[0].shape[1] * 4, queries)
 
-    def _launch(self, t, reads, lengths, nr, queries):
-        """Upload a packed batch (reads: (pack2, vmask), or the protein
-        path's (codes,)) and its lengths, and launch the device program;
-        returns the batch's ctx, its tally t in it."""
+    def _launch(self, t, reads, nr, L, queries):
+        """Upload a packed batch (reads: (pack2, vmask, lengths), or the
+        protein path's (flat, starts)) and launch the device program, lanes
+        of L codes; returns the batch's ctx, its tally t in it.  The protein
+        program's code lanes are translated on the reads' device first
+        (K13), before a sharded index splits them by units."""
         with t.span("engine.upload"):
-            dev_reads = [self._upload(a) for a in (*reads, lengths)]
-        if self.protein:
-            program, L = fused_classify_protein, reads[0].shape[1]
-        else:
-            program, L = fused_classify, reads[0].shape[1] * 4
+            dev_reads = [self._upload(a) for a in reads]
         mhl = self.param.min_hit_len
         H = max(L // (mhl + 1) + 1, 1)
         with t.span("engine.launch"):
+            if self.protein:
+                program = fused_classify_protein
+                # the mates' bytes are freed before the chain's outputs exist
+                dev_reads = list(translate_lanes(*dev_reads, L, self._frame_table))
+            else:
+                program = fused_classify
             out = program(
                 self.dev, *dev_reads, nr, mhl, H,
                 self.param.max_result, self.param.max_result_per_hit_factor,

@@ -10,6 +10,8 @@ first/second/third character that is not A/C/G into the final else branch
 
 import numpy as np
 
+from ..utils import COMP_TABLE
+
 _STD_CODE = {
     "AAA": "K", "AAG": "K", "AAC": "N", "AAT": "N",
     "ACA": "T", "ACC": "T", "ACG": "T", "ACT": "T",
@@ -64,3 +66,24 @@ def translate_frames(raw):
             has_n[frame + 2:frame + 2 + 3 * m:3][:m]
         out.append(np.where(anyn, np.uint8(ord("A")), aa))
     return out
+
+
+# frame_table's layout (kernels/csrc/translate_frames.cu TF_*)
+TABLE_FWD, TABLE_REV, TABLE_BYTES = 128, 384, 640
+
+
+def frame_table(encode):
+    """translate_frames' rules as one uint8 lookup table for the six-frame
+    translation on the card (device_engine.translate_lanes): at 25 a + 5 b + c
+    the code (`encode`: the index's alphabet) of the codon of classes a, b, c,
+    where 0-3 are A, C, G, T (any byte but A, C, G, N) and 4 is N ('A', as a
+    stop is); at TABLE_FWD + byte the byte's class; at TABLE_REV + byte the
+    class of its complement (COMP_TABLE), for the reverse strand."""
+    cls = np.where(_IS_N, 4, _CLS).astype(np.uint8)
+    a, b, c = np.meshgrid(np.arange(5), np.arange(5), np.arange(5), indexing="ij")
+    aa = np.where((a == 4) | (b == 4) | (c == 4), np.uint8(ord("A")), _AA[a % 4, b % 4, c % 4])
+    t = np.zeros(TABLE_BYTES, np.uint8)
+    t[:125] = encode[aa.reshape(-1)]
+    t[TABLE_FWD:TABLE_FWD + 256] = cls
+    t[TABLE_REV:TABLE_REV + 256] = cls[COMP_TABLE]
+    return t

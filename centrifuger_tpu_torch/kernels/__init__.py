@@ -23,8 +23,9 @@ and kept on it (TorchFM.kernel_view, dropped when an attribute of the index
 is set), and each entry point's ctypes prototype is set once, when its
 library loads.
 
-dep_gather (K12) is a microbenchmark of its own, with no FMView: it is
-launched through launch_raw.
+dep_gather (K12, a microbenchmark of its own) and translate_frames (K13,
+the protein engine's six-frame translation) take no FMView: they are
+launched through launch_raw and counted under the kernel's name.
 """
 
 import collections
@@ -39,7 +40,7 @@ import time
 import torch
 
 # C entry point -> (the source that holds it, its arguments after the leading
-# `const FMView*` (none for dep_gather) and before the trailing stream:
+# `const FMView*` (none for RAW_ENTRIES) and before the trailing stream:
 # P = device pointer, i = int)
 ENTRIES = {
     # pack2 vmask lengths U L mhl H hits nhits
@@ -56,7 +57,10 @@ ENTRIES = {
     "rank_probe": ("rank_probe", "iPPPiPP"),
     # table nrow idx B iters out (no FMView)
     "dep_gather": ("dep_gather", "PiPiiP"),
+    # flat starts table R L codes lengths (no FMView)
+    "translate_frames": ("translate_frames", "PPPiiPP"),
 }
+RAW_ENTRIES = ("dep_gather", "translate_frames")
 KERNELS = tuple(dict.fromkeys(src for src, _ in ENTRIES.values()))
 LAYOUT_IDS = {"plain": 0, "runblock": 1, "generic": 2, "plain_sharded": 3}
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -144,7 +148,7 @@ def _bind(lib, name):
         if src != name:
             continue
         fn = getattr(lib, entry + "_launch")
-        fn.argtypes = ([] if entry == "dep_gather" else [ctypes.POINTER(FMView)]) + \
+        fn.argtypes = ([] if entry in RAW_ENTRIES else [ctypes.POINTER(FMView)]) + \
             [ctypes.c_void_p if k == "P" else ctypes.c_int for k in sig] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _ENTRY_FNS[entry] = fn
@@ -264,8 +268,8 @@ def launch(entry, fm, *args, variant=()):
 
 
 def launch_raw(entry, device, *args):
-    """Launch a C entry point that takes no FMView (dep_gather), counted under
-    the kernel's name."""
+    """Launch a C entry point that takes no FMView (RAW_ENTRIES) on the
+    current stream of `device`, counted under the kernel's name."""
     _call(entry, device, _c_args(entry, args))
     with _LOCK:
         LAUNCHES[ENTRIES[entry][0]] += 1

@@ -162,7 +162,8 @@ Phases (any failure exits non-zero and prints no result):
      call (the host's enqueue included) and by device time (events behind a
      spin kernel that hides the enqueue; a PyTorch call that computes the
      same function, where there is one, both ways too): chain_search and
-     finalize_units on one batch of 8,192 pairs (on the main index, path B
+     finalize_units on one batch of 8,192 pairs (on path A fed by
+     translate_frames, K13, on the batch's mates; on the main index, path B
      and path D generic also with the rowmap off: the warp LF-walk resolve
      of --no-rowmap), prefix_search and resolve_rows on the very tensors the
      host finish stage hands them for a batch (resolve_rows with the rowmap
@@ -1148,8 +1149,8 @@ def phase_cfr(log, protein_prefix):
     before = sorted(os.listdir(d))
     for tag, extra in (("k1", []), ("k2", ["-k", "2"]), ("k5", ["-k", "5"])):
         tsv, _ = run_path("protein .cfr index %s" % tag, "path J", prefix, d, extra, n_reads,
-                          ["chain_search:generic:lanes", "finalize_units:generic:protein"],
-                          log, paired=False)
+                          ["translate_frames", "chain_search:generic:lanes",
+                           "finalize_units:generic:protein"], log, paired=False)
         with open(os.path.join(d, "golden_class_%s.tsv" % tag)) as f:
             if tsv != f.read():
                 fail("path J: the protein .cfr index's TSV differs from golden_class_%s.tsv"
@@ -1910,8 +1911,15 @@ def phase_kernels(label, eng, batches, launches, replaces, ref_hits=None,
     mhl = eng.param.min_hit_len
     me = eng.param.max_result * eng.param.max_result_per_hit_factor
     if eng.protein:
-        codes, lengths, nr, L = eng._pack_reads_protein(queries)
-        reads = tuple(torch.from_numpy(x).cuda() for x in (codes, lengths))
+        # K13 builds the code lanes from the mates' bytes, as the engine does
+        flat, starts, nr, L = eng._pack_reads_protein_flat(queries)
+        f, st = (torch.from_numpy(x).cuda() for x in (flat, starts))
+        tab = eng._frame_table
+        reads = rec.add("translate_frames", replaces["translate_frames"],
+                        lambda: de.translate_lanes(f, st, L, tab),
+                        lambda: de.translate_lanes_plain(f, st, L, tab), nbytes(f, st, tab))
+        say("%s: translate_frames: %d mates (%d bytes) to %d lanes x %d codes"
+            % (label, len(starts) - 1, len(flat), len(reads[1]), L))
         chain, chain_plain = fd.chain_search_lanes, fd.chain_search_lanes_plain
     else:
         (pack2, vmask), lengths, nr, L = eng._pack_reads(queries)
@@ -2414,8 +2422,9 @@ def main():
             "and without --no-rowmap")
         tsv["protein"], launches["protein"] = run_path(
             "protein", "path A", prefixes["protein"], dirs["protein"], [], N_PAIRS,
-            ["chain_search:generic:lanes", "finalize_units:generic:protein",
-             "resolve_rows:generic", "rank_probe:generic"], log)
+            ["translate_frames", "chain_search:generic:lanes",
+             "finalize_units:generic:protein", "resolve_rows:generic",
+             "rank_probe:generic"], log)
         say("path A: %d of %d pairs classified"
             % (N_PAIRS - tsv["protein"].count("\tunclassified\t"), N_PAIRS))
         tsv["ftab12"], launches["ftab12"] = run_path(
@@ -2565,6 +2574,7 @@ def main():
         eng = make_engine(prefixes["protein"])
         engine_rates("path A", eng, bq, N_PAIRS, "profile_protein.txt")
         r, _ = phase_kernels("phase 6 path A", eng, bq, launches["protein"], {
+            "translate_frames": "none (the host's _pack_reads_protein)",
             "chain_search": jax_fm + "372", "finalize_units": jax_de + "185",
             "resolve_rows": jax_fm + "372", "rank_probe": jax_fm + "372"})
         recs += r
