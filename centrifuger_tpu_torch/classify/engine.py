@@ -39,6 +39,7 @@ TSV tests.
 """
 
 import itertools
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -75,6 +76,7 @@ class ClassifierTorch(ClassifierTorchUnfused):
         self._batch_no = itertools.count()
         self._sid_prefix = None
         self._pool = None
+        self._held = None        # the last submitted batch's "released" event
         self._frame_table = torch.from_numpy(frame_table(self.encode)).to(self.device) \
             if protein else None
 
@@ -196,7 +198,13 @@ class ClassifierTorch(ClassifierTorchUnfused):
         protein path's (flat, starts)) and launch the device program, lanes
         of L codes; returns the batch's ctx, its tally t in it.  The protein
         program's code lanes are translated on the reads' device first
-        (K13), before a sharded index splits them by units."""
+        (K13), before a sharded index splits them by units.  It first waits
+        until the batch submitted last to the finish workers has let its
+        device outputs go (finish_packed), so that batches coming faster than
+        a finish worker reaches them do not stack their outputs on the card;
+        the wait shows in the engine.dispatch record, under no counter."""
+        if self._held is not None:
+            self._held.wait()
         with t.span("engine.upload"):
             dev_reads = [self._upload(a) for a in reads]
         mhl = self.param.min_hit_len
@@ -212,7 +220,7 @@ class ClassifierTorch(ClassifierTorchUnfused):
                 self.dev, *dev_reads, nr, mhl, H,
                 self.param.max_result, self.param.max_result_per_hit_factor,
                 self.K_OUT, len(queries) * self.U_CAP)
-        return dict(queries=queries, out=out, nr=nr, t=t)
+        return dict(queries=queries, out=out, nr=nr, t=t, released=threading.Event())
 
     def _pull_results(self, out):
         """ONE device->host transfer: unpack host_blob (packed + fb_units +
@@ -233,17 +241,26 @@ class ClassifierTorch(ClassifierTorchUnfused):
 
     def finish_packed(self, ctx):
         """(packed [Q, 5+K] numpy, {unit: ClassifierResult} for the
-        fallback units)."""
+        fallback units).  The batch's device outputs are let go (taken out of
+        ctx) once the flagged units' chains are on the host, before the host
+        work of the fallback; then ctx["released"] is set, which the next
+        dispatch waits on (_launch)."""
         queries, nr, t = ctx["queries"], ctx["nr"], ctx["t"]
-        with t.span("finish.pull"):
-            packed, out = self._pull_results(ctx["out"])
-        fb_idx = np.flatnonzero((packed[:, 4] != 0) | (packed[:, 3] > self.K_OUT))
-        t.counts.update(fallback_units=int(len(fb_idx)),
-                        fast_units=int(len(queries) - len(fb_idx)))
-        fb = {}
-        with t.span("finish.fallback"):
-            if len(fb_idx):
-                fb = self._finish_fallback_units(queries, fb_idx, out, nr)
+        try:
+            with t.span("finish.pull"):
+                packed, out = self._pull_results(ctx.pop("out"))
+            fb_idx = np.flatnonzero((packed[:, 4] != 0) | (packed[:, 3] > self.K_OUT))
+            t.counts.update(fallback_units=int(len(fb_idx)),
+                            fast_units=int(len(queries) - len(fb_idx)))
+            fb = {}
+            with t.span("finish.fallback"):
+                if len(fb_idx):
+                    hits_at = self._fallback_hits_accessor(out, fb_idx, nr)
+                    out = None
+                    ctx["released"].set()
+                    fb = self._finish_fallback_units(queries, fb_idx, hits_at, nr)
+        finally:
+            ctx["released"].set()
         return packed, fb
 
     def _finish_fused(self, ctx):
@@ -312,11 +329,11 @@ class ClassifierTorch(ClassifierTorchUnfused):
             return [tuple(int(v) for v in hs[i, m]) for m in range(int(ns[i]))]
         return hits_at
 
-    def _finish_fallback_units(self, queries, fb_idx, out, nr):
-        """Exact host finalize for flagged units: one prefix_search dispatch
-        serves every boundary-adjustment search, one resolve dispatch every
-        SA row (protein units have no boundary adjustment)."""
-        hits_at = self._fallback_hits_accessor(out, fb_idx, nr)
+    def _finish_fallback_units(self, queries, fb_idx, hits_at, nr):
+        """Exact host finalize for flagged units, their chains read through
+        hits_at (_fallback_hits_accessor): one prefix_search dispatch serves
+        every boundary-adjustment search, one resolve dispatch every SA row
+        (protein units have no boundary adjustment)."""
         unit_hits = self._fallback_unit_hits_protein if self.protein \
             else self._fallback_unit_hits_dna
         return self._classify_units_batch(unit_hits(queries, fb_idx, hits_at, nr))
@@ -394,6 +411,7 @@ class ClassifierTorch(ClassifierTorchUnfused):
 
     def _submit(self, fn, ctx, *args):
         """(the batch's tally, the future of its finish on the workers)."""
+        self._held = ctx["released"]
         return ctx["t"], self._finish_pool().submit(self._finish, fn, ctx, *args)
 
     def _collect(self, t, fut):

@@ -387,7 +387,7 @@ def main(argv=None):
             f.write("".join("%d\n" % c for c in rank_counts))
     writer.finalize()
     if hasattr(classifier, "stats"):
-        log(_units_line(classifier.stats))
+        log(_units_line(classifier.stats) + _parse_share(spans.totals()))
     if args.trace_out:
         spans.write_chrome_trace(args.trace_out)
         spans.enable(False)
@@ -409,6 +409,17 @@ def _units_line(st):
         line += " in %d batches; us a read: %s" % (st["batches"], ", ".join(
             "%s %.2f" % (name, st[name + "_s"] / units * 1e6) for name in stages))
     return line
+
+
+def _parse_share(totals):
+    """The share of ReadFiles' reads that its native pass gave, against its
+    line parser's (the counters of io/readers.py); "" where it gave none."""
+    native = totals.get("io.native_reads", (0.0, 0))[1]
+    lines = totals.get("io.line_reads", (0.0, 0))[1]
+    if not native + lines:
+        return ""
+    return "; reads parsed natively: %.1f%% (%d of %d)" % (
+        100.0 * native / (native + lines), native, native + lines)
 
 
 def _serve_bulk(classifier, paths, batch_size, mine, writer, rank_counts):

@@ -5,7 +5,8 @@
   sa_chunked.cpp  difference-cover chunked SA builder (the memory-bounded
                   build path, fm/sa_external.py)
   fastqpack.cpp   one-pass FASTQ parse + 2-bit pack (the bulk FASTQ producer,
-                  io/fastq_fast.py)
+                  io/fastq_fast.py), and the record splitter of the object
+                  route's ReadFiles (io/readers.py)
   tsvquant.cpp    one-pass classification-TSV ingest (quant/quantifier.py)
 
 Each shared library is written into a git-ignored build directory beside this

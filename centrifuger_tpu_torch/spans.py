@@ -5,7 +5,9 @@ to the batch's Tally (``with tally.span("engine.pack"): ...``), which the
 classifier folds into its stats (classify/engine.py); before any classifier
 exists, ``with span("load.index"): ...`` adds its seconds and a count to
 the process totals (totals()).  Both always count, at two perf_counter reads
-a span.
+a span.  count(name, n) adds n to a process total's count with no time:
+a counter (io.native_reads and io.line_reads, the reads each of
+ReadFiles' two parsers gave, io/readers.py).
 
 After enable(), every span is also kept in memory as a Record: its name,
 t0 and t1 in perf_counter seconds, the thread's name, the batch number and
@@ -32,7 +34,7 @@ _on = False
 _records = []
 _local = threading.local()   # .top: the innermost recording span of the thread
 _lock = threading.Lock()
-_totals = {}                 # name -> [seconds, count] of the spans with no tally
+_totals = {}                 # name -> [seconds, count] of the spans with no tally, and counters
 
 
 def enable(on=True):
@@ -99,6 +101,13 @@ class Span:
 def span(name):
     """A span counted into the process totals (set-up stages)."""
     return Span(name)
+
+
+def count(name, n):
+    """Add n to the count of the process total `name` (a counter: its
+    seconds stay 0)."""
+    with _lock:
+        _totals.setdefault(name, [0.0, 0])[1] += n
 
 
 class Tally:

@@ -140,6 +140,57 @@ def test_finish_workers_count_exactly(prefix, queries, spans_off):
     assert piped.stats["batches"] == len(bs)
 
 
+def test_finish_lets_the_device_outputs_go_before_the_fallback(prefix, queries, monkeypatch):
+    """finish_packed takes the batch's device outputs out of its ctx and
+    holds none of them through the fallback's host work, so that a faster
+    reader's next batches do not find them still allocated."""
+    import weakref
+    from centrifuger_tpu_torch.classify.engine import ClassifierTorch
+    c = make(prefix)
+    ctx = c._dispatch_fused(queries)
+    held = [weakref.ref(ctx["out"][k]) for k in ("hits", "nhits", "host_blob")]
+    seen = []
+    orig = ClassifierTorch._finish_fallback_units
+
+    def spy(self, *args):
+        seen.append([r() is None for r in held])
+        return orig(self, *args)
+    monkeypatch.setattr(ClassifierTorch, "_finish_fallback_units", spy)
+    packed, fb = c.finish_packed(ctx)
+    assert seen == [[True, True, True]] and "out" not in ctx and fb
+    assert ctx["released"].is_set()
+    ref = make(prefix)
+    want_packed, want_fb = ref.finish_packed(ref._dispatch_fused(queries))
+    assert np.array_equal(packed, want_packed) and sorted(fb) == sorted(want_fb)
+
+
+def test_dispatch_waits_for_the_last_batch_to_let_its_outputs_go(prefix, queries, monkeypatch):
+    """A finish worker slow to pull: each pipelined batch's upload starts
+    only after the batch before it has pulled its outputs and let the
+    device ones go."""
+    import time
+    from centrifuger_tpu_torch.classify.engine import ClassifierTorch
+    orig = ClassifierTorch._pull_results
+
+    def slow_pull(self, out):
+        time.sleep(0.05)
+        return orig(self, out)
+    monkeypatch.setattr(ClassifierTorch, "_pull_results", slow_pull)
+    c = make(prefix)
+    bs = batches_of(queries, 4)[:4]
+    spans.enable()
+    try:
+        got = list(c.query_pipelined_packed(bs))
+    finally:
+        spans.enable(False)
+    rec = spans.records()
+    pulled = {r.batch: r.t1 for r in rec if r.name == "finish.pull"}
+    uploads = {r.batch: r.t0 for r in rec if r.name == "engine.upload"}
+    assert len(got) == len(bs) and len(uploads) == len(bs)
+    for b in sorted(uploads)[1:]:
+        assert uploads[b] >= pulled[b - 1], b
+
+
 def test_stats_lock_loses_no_update(prefix):
     """Eight threads adding to stats at once, as the finish workers do."""
     c = make(prefix)
@@ -276,3 +327,15 @@ def test_cli_tsv_same_with_spans_on(prefix, tmp_path, route, args):
         assert " %s " % name in line, name
     for name in GROUPS:
         assert name not in line, name
+
+
+def test_cli_line_gives_the_native_read_share(prefix, monkeypatch):
+    """The CLI's closing line says how many of ReadFiles' reads its native
+    pass gave (io.native_reads against io.line_reads)."""
+    monkeypatch.setattr(spans, "_totals", {})
+    _, err = cli(prefix, ["-1", os.path.join(TINY, "reads_1.fq"),
+                          "-2", os.path.join(TINY, "reads_2.fq")])
+    with open(os.path.join(TINY, "reads_1.fq")) as f:
+        n = 2 * (sum(1 for _ in f) // 4)
+    line = [ln for ln in err.splitlines() if "Device units:" in ln][-1]
+    assert line.endswith("; reads parsed natively: 100.0%% (%d of %d)" % (n, n))
