@@ -21,7 +21,9 @@ TSV lines), query_pipelined (one result object a read: the CLI's read-prep
 routes), and the bulk FASTQ route, iter_prepacked on a producer thread (one
 native parse-and-pack pass a batch) feeding serve_tsv_prepacked, which
 uploads and dispatches on the serving thread and formats on the finish
-workers.
+workers.  They and query_batch are one loop, _pipeline: up to PIPELINE_DEPTH
+batches the fused program takes (_fused_takes) in flight, drained before
+any other batch goes to the non-fused engine.
 
 Every batch is numbered at dispatch and timed by stage (spans.py): on the
 serving thread engine.pack, engine.upload and engine.launch (grouped in the
@@ -49,15 +51,22 @@ import torch
 from .engine_np import ClassifierResult, BWTHit
 from .engine_unfused import ClassifierTorchUnfused, _round_up
 from .device_engine import fused_classify, fused_classify_protein, translate_lanes, U_CAP
-from .translate import frame_table, translate_frames
+from .translate import frame_table
 from .. import spans
 from ..io.fastq_fast import iter_packed_batches
-from ..utils import COMP_TABLE
 
 ENGINE_STAGES = ("engine.pack", "engine.upload", "engine.launch", "engine.finish_wait",
                  "engine.unfused")
 FINISH_STAGES = ("finish.pull", "finish.fallback", "finish.format")
 STAGES = ENGINE_STAGES + FINISH_STAGES
+
+
+def _as_results(queries, results):
+    return results
+
+
+def _as_packed(queries, results):
+    return None, dict(enumerate(results)), queries
 
 
 class ClassifierTorch(ClassifierTorchUnfused):
@@ -84,9 +93,16 @@ class ClassifierTorch(ClassifierTorchUnfused):
         return self.param.max_result > 0 and \
             self.param.max_result_per_hit_factor > 0
 
-    def _too_long(self, queries):
-        return any(len(r1) > self.L_MAX or (r2 is not None and len(r2) > self.L_MAX)
-                   for r1, r2 in queries)
+    def _fused_takes(self, queries, lengths=None):
+        """Whether the fused program takes a batch: -k and --hitk-factor above
+        0 and no read over L_MAX, the longest taken from `lengths` where the
+        batch carries them (the bulk route's)."""
+        if not self._fused_ok():
+            return False
+        if lengths is not None:
+            return int(lengths.max(initial=0)) <= self.L_MAX
+        return not any(len(r1) > self.L_MAX or (r2 is not None and len(r2) > self.L_MAX)
+                       for r1, r2 in queries)
 
     # --------------------------------------------------------------- batching
 
@@ -95,61 +111,22 @@ class ClassifierTorch(ClassifierTorchUnfused):
         nr, L) as numpy arrays, U = len(queries) * nr (engine_fused.
         _pack_reads).  The JAX engine pads the unit count to a power of two
         for its compile cache; nothing here is compiled per shape, so there
-        is no padding.  L keeps its rounding: it sets the hit capacity
-        H = L // (mhl + 1) + 1, which the results depend on."""
+        is no padding.  L keeps its rounding (_encode_reads): it sets the hit
+        capacity H = L // (mhl + 1) + 1, which the results depend on."""
         nr = 2 if any(q[1] is not None for q in queries) else 1
-        U = len(queries) * nr
-        maxlen = 1
-        for r1, r2 in queries:
-            maxlen = max(maxlen, len(r1), len(r2) if r2 is not None else 0)
-        L = _round_up(max(maxlen, 32), 64)
         raws = []
         for r1, r2 in queries:
             raws.append(r1)
             if nr == 2:
                 raws.append(r2 if r2 is not None else b"")
-        lens = np.fromiter((len(r) for r in raws), np.int32, len(raws))
-        flat = np.concatenate([np.frombuffer(bytes(r), np.uint8) if not
-                               isinstance(r, np.ndarray) else r
-                               for r in raws]) if len(raws) else \
-            np.zeros(0, np.uint8)
-        codes = np.full((U, L), 255, np.uint8)
-        starts = np.zeros(len(raws) + 1, np.int64)
-        np.cumsum(lens, out=starts[1:])
-        ridx = np.repeat(np.arange(len(raws)), lens)
-        cidx = np.arange(len(flat)) - starts[ridx]
-        codes[ridx, cidx] = self.encode[flat]
+        codes, lens, _, _ = self._encode_reads(raws)
+        U, L = codes.shape
         valid = codes != 255
         cc = np.where(valid, codes, 0).astype(np.uint8).reshape(U, L // 4, 4)
         pack2 = (cc[:, :, 0] | (cc[:, :, 1] << 2) | (cc[:, :, 2] << 4)
                  | (cc[:, :, 3] << 6)).astype(np.uint8)
         vmask = np.packbits(valid, axis=1, bitorder="little")
         return (pack2, vmask), lens, nr, L
-
-    def _pack_reads_protein(self, queries):
-        """queries -> (amino-acid code lanes [U * 6, L] uint8 with 255 invalid,
-        lane lengths [U * 6] int32, nr, L), U = len(queries) * nr
-        (engine_fused._pack_reads_protein).  Per read the lanes are the fwd
-        frames 0..2, then the frames 0..2 of the reverse complement
-        (TranslatedSearch, Classifier.hpp:451-493).  No padding of the unit
-        count, as in _pack_reads; L rounds to 32 here, not to 64."""
-        nr = 2 if any(q[1] is not None for q in queries) else 1
-        lanes = []
-        for r1, r2 in queries:
-            for raw in (r1,) + ((r2,) if nr == 2 else ()):
-                if raw is None or len(raw) == 0:
-                    lanes.extend([np.zeros(0, np.uint8)] * 6)
-                    continue
-                for strand in (raw, COMP_TABLE[raw][::-1]):
-                    lanes.extend(self.encode[aa] for aa in translate_frames(strand))
-        maxlen = max((len(c) for c in lanes), default=1)
-        L = max(_round_up(max(maxlen, 16), 32), 32)
-        codes = np.full((len(lanes), L), 255, np.uint8)
-        lengths = np.zeros(len(lanes), np.int32)
-        for i, c in enumerate(lanes):
-            codes[i, :len(c)] = c
-            lengths[i] = len(c)
-        return codes, lengths, nr, L
 
     def _pack_reads_protein_flat(self, queries):
         """queries -> (flat uint8: every mate's bytes joined in unit order,
@@ -183,7 +160,7 @@ class ClassifierTorch(ClassifierTorchUnfused):
                     reads = (pack2, vmask, lengths)
             return self._launch(t, reads, nr, L, queries)
 
-    def _dispatch_packed(self, reads, lengths, nr, queries):
+    def _dispatch_packed(self, queries, reads, lengths, nr):
         """Dispatch from host-packed numpy arrays, reads = (pack2, vmask) as
         _pack_reads or the native producer (io/fastq_fast.py) gives them: the
         upload and the launch run on the calling (serving) thread, so a
@@ -339,35 +316,15 @@ class ClassifierTorch(ClassifierTorchUnfused):
         return self._classify_units_batch(unit_hits(queries, fb_idx, hits_at, nr))
 
     def _fallback_unit_hits_protein(self, queries, fb_idx, hits_at, nr):
-        """Flagged protein units: frame choice, then strand choice, on the
-        host from the device chains (TranslatedSearch, Classifier.hpp:451-493).
-        Returns [(qi, hits, qlen), ...]."""
-        def best_frame(lane0):
-            frames = [hits_at(lane0 + f) for f in range(3)]
-            best, tag = 0, 0
-            for f, fh in enumerate(frames):
-                sc = len(fh) * sum(self.hit_score(h[2]) for h in fh)
-                if sc > best:
-                    best, tag = sc, f
-            return frames[tag]
-
+        """Flagged protein units: the frame and strand choice
+        (_translated_choice) on the device chains.  Returns [(qi, hits,
+        qlen), ...]."""
         res = []
-        for qi in fb_idx:
-            qi = int(qi)
+        for qi in map(int, fb_idx):
             r1, r2 = queries[qi]
-            base = 6 * nr * qi
-            plus, minus = best_frame(base), best_frame(base + 3)
-            if r2 is not None and nr == 2:
-                plus = plus + best_frame(base + 9)     # rc frames of r2
-                minus = minus + best_frame(base + 6)   # fwd frames of r2
-            sc_p = sum(self.hit_score(h[2]) for h in plus)
-            sc_m = sum(self.hit_score(h[2]) for h in minus)
-            chosen = [(h, 1) for h in plus] if sc_p >= sc_m else []
-            if sc_m >= sc_p:
-                chosen += [(h, -1) for h in minus]
-            hs = [BWTHit(h[0], h[1], h[2], h[3], s) for h, s in chosen]
-            qlen = len(r1) + (len(r2) if r2 is not None else 0)
-            res.append((qi, hs, qlen))
+            chosen = self._translated_choice(hits_at, 6 * nr * qi, r2 is not None and nr == 2)
+            res.append((qi, [BWTHit(*h, s) for h, s in chosen],
+                        len(r1) + (len(r2) if r2 is not None else 0)))
         return res
 
     # ------------------------------------------------------------ main entry
@@ -384,13 +341,8 @@ class ClassifierTorch(ClassifierTorchUnfused):
         return results
 
     def query_batch(self, queries):
-        if not queries:
-            return []
-        if not self._fused_ok() or self._too_long(queries):
-            return self._unfused_batch(queries)
-        ctx = self._dispatch_fused(queries)
-        results = self._finish(self._finish_fused, ctx)
-        self._add_stats(ctx["t"].seconds, ENGINE_STAGES, batches=1)
+        [results] = self._pipeline([(queries, None, (), ())], self._dispatch_fused,
+                                   self._finish_fused, _as_results)
         return results
 
     def _finish_pool(self):
@@ -426,42 +378,46 @@ class ClassifierTorch(ClassifierTorchUnfused):
         packed, fb = self.finish_packed(ctx)
         return packed, fb, ctx["queries"]
 
-    def query_pipelined_packed(self, batches):
-        """Yields (packed, fallback_dict, queries) per batch, in order;
-        dispatch and finish overlap across up to PIPELINE_DEPTH batches."""
+    def _pipeline(self, items, dispatch, finish, shape):
+        """The one serving loop under query_batch, query_pipelined,
+        query_pipelined_packed and serve_tsv_prepacked; yields a result a
+        batch, in order.  items yields (queries, lengths or None, dargs,
+        fargs).  A batch the fused program takes (_fused_takes) is dispatched
+        on this thread (dispatch(queries, *dargs) gives its ctx) and finished
+        on the workers (finish(ctx, *fargs)), up to PIPELINE_DEPTH batches in
+        flight.  Any other batch first drains those, then goes to the
+        non-fused engine (none for an empty batch), whose results are yielded
+        as shape(queries, results, *fargs)."""
         pend = deque()
-        for batch in batches:
-            if not batch or not self._fused_ok() or self._too_long(batch):
-                while pend:
+        for queries, lengths, dargs, fargs in items:
+            if len(queries) and self._fused_takes(queries, lengths):
+                pend.append(self._submit(finish, dispatch(queries, *dargs), *fargs))
+                if len(pend) >= self.PIPELINE_DEPTH:
                     yield self._collect(*pend.popleft())
-                if not batch:
-                    yield np.zeros((0, 5 + self.K_OUT), np.int32), {}, []
-                else:
-                    yield None, dict(enumerate(self._unfused_batch(batch))), batch
                 continue
-            pend.append(self._submit(self._finish_packed_ctx, self._dispatch_fused(batch)))
-            if len(pend) >= self.PIPELINE_DEPTH:
+            while pend:
                 yield self._collect(*pend.popleft())
+            # the bulk route's LazyQueries iterate lengths only: index them
+            batch = [queries[i] for i in range(len(queries))]
+            yield shape(batch, self._unfused_batch(batch) if batch else [], *fargs)
         while pend:
             yield self._collect(*pend.popleft())
+
+    def query_pipelined_packed(self, batches):
+        """Yields (packed, fallback_dict, queries) per batch, in order;
+        dispatch and finish overlap across up to PIPELINE_DEPTH batches.  A
+        batch the fused program does not take, or an empty one, has packed
+        None and every result in fallback_dict."""
+        return self._pipeline(((b, None, (), ()) for b in batches), self._dispatch_fused,
+                              self._finish_packed_ctx, _as_packed)
 
     def query_pipelined(self, batches):
         """Yields one result list per batch, in order (engine_fused.
         query_pipelined): batch i's finish and result objects overlap batch
         i+1's upload and device work.  The CLI's per-read-result routes
         (barcodes, UMIs, --un / --cl, sample sheets, --expand-taxid) take it."""
-        pend = deque()
-        for batch in batches:
-            if not batch or not self._fused_ok() or self._too_long(batch):
-                while pend:
-                    yield self._collect(*pend.popleft())
-                yield self._unfused_batch(batch) if batch else []
-                continue
-            pend.append(self._submit(self._finish_fused, self._dispatch_fused(batch)))
-            if len(pend) >= self.PIPELINE_DEPTH:
-                yield self._collect(*pend.popleft())
-        while pend:
-            yield self._collect(*pend.popleft())
+        return self._pipeline(((b, None, (), ()) for b in batches), self._dispatch_fused,
+                              self._finish_fused, _as_results)
 
     # --------------------------------------------------- bulk FASTQ serving
 
@@ -495,22 +451,15 @@ class ClassifierTorch(ClassifierTorchUnfused):
         TSV formatting run on the finish workers.  A batch the fused program
         cannot take (-k 0, --hitk-factor 0, a read over L_MAX) goes to the
         non-fused engine, as query_pipelined_packed hands it."""
-        pend = deque()
-        for ids, queries, reads, lengths, nr in items:
-            if not self._fused_ok() or int(lengths.max(initial=0)) > self.L_MAX:
-                while pend:
-                    yield self._collect(*pend.popleft())
-                batch = [queries[i] for i in range(len(queries))]
-                lines, ncls = self.format_tsv_batch(
-                    None, dict(enumerate(self._unfused_batch(batch))), batch, ids)
-                yield lines, ncls, len(batch)
-                continue
-            pend.append(self._submit(self.finish_tsv_ctx,
-                                     self._dispatch_packed(reads, lengths, nr, queries), ids))
-            if len(pend) >= self.PIPELINE_DEPTH:
-                yield self._collect(*pend.popleft())
-        while pend:
-            yield self._collect(*pend.popleft())
+        return self._pipeline(
+            ((queries, lengths, (reads, lengths, nr), (ids,))
+             for ids, queries, reads, lengths, nr in items),
+            self._dispatch_packed, self.finish_tsv_ctx, self._unfused_tsv)
+
+    def _unfused_tsv(self, queries, results, read_ids):
+        """serve_tsv_prepacked's tuple of the non-fused engine's results."""
+        lines, ncls = self.format_tsv_batch(None, dict(enumerate(results)), queries, read_ids)
+        return lines, ncls, len(queries)
 
     def _tsv_tables(self):
         """Per-seqid TSV fragment "\\t<name>\\t<taxid>\\t"."""

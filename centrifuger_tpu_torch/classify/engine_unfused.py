@@ -33,6 +33,7 @@ import torch
 
 from .engine_np import ClassifierNP, ClassifierResult, BWTHit
 from .finalize import finalize_units, finalize_prepare
+from .translate import translate_frames
 from ..fm.device import TorchFM, chain_search_lanes, prefix_search, resolve_rows
 from ..spans import span
 from ..utils import COMP_TABLE
@@ -94,30 +95,55 @@ class ClassifierTorchUnfused(ClassifierNP):
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _encode_reads(self, raws, floor=32, unit=64):
+        """raws (uint8 arrays or bytes) -> (codes [R, L] uint8: row i read i
+        encoded, 255 past its end; lens [R] int32; ridx, cidx: each base's
+        row and column).  L is the longest read, at least `floor`, rounded up
+        to a multiple of `unit`."""
+        lens = np.fromiter((len(r) for r in raws), np.int32, len(raws))
+        L = _round_up(max(int(lens.max(initial=1)), floor), unit)
+        flat = np.concatenate([np.frombuffer(bytes(r), np.uint8) if not
+                               isinstance(r, np.ndarray) else r
+                               for r in raws]) if len(raws) else \
+            np.zeros(0, np.uint8)
+        codes = np.full((len(raws), L), 255, np.uint8)
+        starts = np.zeros(len(raws) + 1, np.int64)
+        np.cumsum(lens, out=starts[1:])
+        ridx = np.repeat(np.arange(len(raws)), lens)
+        cidx = np.arange(len(flat)) - starts[ridx]
+        codes[ridx, cidx] = self.encode[flat]
+        return codes, lens, ridx, cidx
+
     def _encode_lanes(self, raws):
         """Vectorized encode of reads + their revcomps.
         raws: list of uint8 arrays. Returns (codes [2R, L], lengths [2R]):
         lane 2i = forward, lane 2i+1 = revcomp."""
-        R = len(raws)
-        maxlen = max((len(r) for r in raws), default=1)
-        L = max(_round_up(max(maxlen, 32), 64), 64)
-        lens = np.fromiter((len(r) for r in raws), np.int32, R)
-        flat = np.concatenate(raws) if R else np.zeros(0, np.uint8)
-        starts = np.zeros(R + 1, np.int64)
-        np.cumsum(lens, out=starts[1:])
-        fwd = np.full((R, L), 255, np.uint8)
-        ridx = np.repeat(np.arange(R), lens)
-        cidx = np.arange(len(flat)) - starts[ridx]
-        fwd[ridx, cidx] = self.encode[flat]
+        fwd, lens, ridx, cidx = self._encode_reads(raws)
         # revcomp lanes: complement codes = 3 - code (A<->T, C<->G), reversed
-        rc = np.full((R, L), 255, np.uint8)
+        rc = np.full(fwd.shape, 255, np.uint8)
         rc_codes = np.where(fwd[ridx, cidx] == 255, 255, 3 - fwd[ridx, cidx])
         rc[ridx, lens[ridx] - 1 - cidx] = rc_codes
-        codes = np.empty((2 * R, L), np.uint8)
+        codes = np.empty((2 * len(raws), fwd.shape[1]), np.uint8)
         codes[0::2] = fwd
         codes[1::2] = rc
-        lengths = np.repeat(lens, 2).astype(np.int32)
-        return codes, lengths
+        return codes, np.repeat(lens, 2).astype(np.int32)
+
+    def _pack_reads_protein(self, queries):
+        """queries -> (amino-acid code lanes [U * 6, L] uint8 with 255 invalid,
+        lane lengths [U * 6] int32, nr, L), U = len(queries) * nr
+        (engine_fused._pack_reads_protein).  Per read the lanes are the fwd
+        frames 0..2, then the frames 0..2 of the reverse complement
+        (TranslatedSearch, Classifier.hpp:451-493); an empty or missing mate
+        has six empty lanes.  No padding of the unit count; L rounds to 32."""
+        nr = 2 if any(q[1] is not None for q in queries) else 1
+        aas = []
+        for q in queries:
+            for raw in q[:nr]:
+                raw = np.zeros(0, np.uint8) if raw is None else raw
+                for strand in (raw, COMP_TABLE[raw][::-1]):
+                    aas.extend(translate_frames(strand))
+        codes, lengths, _, _ = self._encode_reads(aas, floor=16, unit=32)
+        return codes, lengths, nr, codes.shape[1]
 
     def _chain_search_dispatch(self, codes, lengths):
         """Launch the chain search on a [B, L] batch; returns the device
@@ -134,6 +160,14 @@ class ClassifierTorchUnfused(ClassifierNP):
         hits, nh = out
         h = hits.cpu().numpy()
         return h[:, :, 0], h[:, :, 1], h[:, :, 2], h[:, :, 3], nh.cpu().numpy()
+
+    @staticmethod
+    def _lane_hits(sp, ep, hl, off, nh):
+        """hits_at(lane) -> [(sp, ep, l, off), ...] over _pull_hits' arrays."""
+        def hits_at(lane):
+            return [(int(sp[lane, m]), int(ep[lane, m]), int(hl[lane, m]),
+                     int(off[lane, m])) for m in range(int(nh[lane]))]
+        return hits_at
 
     def _resolve_dispatch(self, rows):
         """Launch the SA resolve for a flat row array; returns the device
@@ -260,10 +294,8 @@ class ClassifierTorchUnfused(ClassifierNP):
         rows, cont = finalize_prepare(self, Q, flat, qlens)
         return dict(queries=queries, Q=Q, cont=cont, rows_n=len(rows),
                     handle=self._resolve_dispatch(rows),
-                    needs_adjust=needs_adjust, nh=nh,
-                    hsp=hsp, hep=hep, hlv=hlv, hoff=hoff,
-                    lane_f1=lane_f1, lane_r1=lane_r1,
-                    lane_f2=lane_f2, lane_r2=lane_r2)
+                    needs_adjust=needs_adjust, hits=(hsp, hep, hlv, hoff, nh),
+                    lanes=np.stack([lane_f1, lane_r1, lane_f2, lane_r2], axis=1))
 
     def _stage_finalize(self, ctx):
         """Stage C: pull the resolved seqids, finish per-read records, exact
@@ -275,110 +307,62 @@ class ClassifierTorchUnfused(ClassifierNP):
         else:
             seqids = handle.cpu().numpy()[:ctx["rows_n"]].astype(np.int64)
         results = ctx["cont"](seqids)
-        needs_adjust = ctx["needs_adjust"]
-        nh, hsp, hep, hlv, hoff = (ctx["nh"], ctx["hsp"], ctx["hep"],
-                                   ctx["hlv"], ctx["hoff"])
-        lane_f1, lane_r1, lane_f2, lane_r2 = (ctx["lane_f1"], ctx["lane_r1"],
-                                              ctx["lane_f2"], ctx["lane_r2"])
 
         # the exact path for the rare adjustment candidates: ClassifierJax
         # runs each unit's backward searches and SA resolves on the host; here
         # they go to the device as one prefix_search and one resolve_rows
         # dispatch, as the fused engine's flagged units do (reads of 10^4 bp
         # make the host searches minutes long)
-        adj_idx = np.flatnonzero(needs_adjust)
+        adj_idx = np.flatnonzero(ctx["needs_adjust"])
         self._add_stats(fast_units=int(Q - len(adj_idx)), slow_units=int(len(adj_idx)))
         if len(adj_idx):
-            lanes = np.stack([lane_f1, lane_r1, lane_f2, lane_r2], axis=1)
-
-            def hits_at(v):
-                """Hits of lane j of unit qi, v = 4 qi + j (f1, rc1, f2, rc2)."""
-                lane = lanes[v // 4, v % 4]
-                return [(int(hsp[lane, m]), int(hep[lane, m]),
-                         int(hlv[lane, m]), int(hoff[lane, m]))
-                        for m in range(int(nh[lane]))]
-            exact = self._classify_units_batch(
-                self._fallback_unit_hits_dna(queries, adj_idx, hits_at, 2))
+            # v = 4 qi + j: lane j (f1, rc1, f2, rc2) of unit qi
+            lane_hits, lanes = self._lane_hits(*ctx["hits"]), ctx["lanes"]
+            exact = self._classify_units_batch(self._fallback_unit_hits_dna(
+                queries, adj_idx, lambda v: lane_hits(lanes[v // 4, v % 4]), 2))
             for qi, res in exact.items():
                 results[qi] = res
         return results
 
     def _query_batch_protein(self, queries):
-        """Batched translated search: 3 frames x 2 strands per read as device
-        lanes, frame selection + strand choice host-side, vectorized finalize.
-        (TranslatedSearch, reference Classifier.hpp:451-493: best-scoring frame
-        per strand, no hit-boundary adjustment on the protein path.)"""
-        from .translate import translate_frames
-
-        lanes = []          # AA code arrays
-        lane_of = []        # per (read, strand): list of 3 frame lane ids
-        for r1, r2 in queries:
-            for raw in ((r1, COMP_TABLE[r1][::-1]) +
-                        ((r2, COMP_TABLE[r2][::-1]) if r2 is not None else ())):
-                ids = []
-                for aa in translate_frames(raw):
-                    ids.append(len(lanes))
-                    lanes.append(self.encode[aa])
-                lane_of.append(ids)
-
-        if not lanes:
-            return [self.query(r1, r2) for r1, r2 in queries]
-        maxlen = max((len(c) for c in lanes), default=1)
-        L = max(_round_up(max(maxlen, 16), 32), 32)
-        codes = np.full((len(lanes), L), 255, np.uint8)
-        lengths = np.zeros(len(lanes), np.int32)
-        for i, c in enumerate(lanes):
-            codes[i, :len(c)] = c
-            lengths[i] = len(c)
-        hits = self._pull_hits(self._chain_search_dispatch(codes, lengths))
-
-        def lane_hits(lane):
-            sp, ep, hl, off, nh = hits
-            n = int(nh[lane])
-            return [(int(sp[lane, m]), int(ep[lane, m]), int(hl[lane, m]),
-                     int(off[lane, m])) for m in range(n)]
-
-        def best_frame(ids):
-            """Frame with max (count * sum-score); ties keep the earlier frame
-            (Classifier.hpp:474-487, strict >)."""
-            best, tag = 0, 0
-            fh = [lane_hits(i) for i in ids]
-            for f in range(3):
-                sc = len(fh[f]) * sum(self.hit_score(h[2]) for h in fh[f])
-                if sc > best:
-                    best, tag = sc, f
-            return fh[tag]
-
-        fast_units = []
-        li = 0
-        for r1, r2 in queries:
-            plus = best_frame(lane_of[li])       # fwd r1
-            minus = best_frame(lane_of[li + 1])  # rc r1
-            li += 2
-            if r2 is not None:
-                plus2 = best_frame(lane_of[li])
-                minus2 = best_frame(lane_of[li + 1])
-                li += 2
-                plus = plus + minus2
-                minus = minus + plus2
-            sc_plus = sum(self.hit_score(h[2]) for h in plus)
-            sc_minus = sum(self.hit_score(h[2]) for h in minus)
-            if sc_plus > sc_minus:
-                chosen = [(h, 1) for h in plus]
-            elif sc_minus > sc_plus:
-                chosen = [(h, -1) for h in minus]
-            else:
-                chosen = [(h, 1) for h in plus] + [(h, -1) for h in minus]
-            hd = dict(
-                sp=np.array([h[0] for h, s in chosen], np.int64),
-                ep=np.array([h[1] for h, s in chosen], np.int64),
-                l=np.array([h[2] for h, s in chosen], np.int64),
-                off=np.array([h[3] for h, s in chosen], np.int64),
-                strand=np.array([s for h, s in chosen], np.int64),
-            )
+        """Batched translated search: the six frame lanes of every mate
+        (_pack_reads_protein) in one chain search, the frame and strand
+        choice (_translated_choice) on the host, vectorized finalize."""
+        if not queries:
+            return []
+        codes, lengths, nr, _ = self._pack_reads_protein(queries)
+        hits_at = self._lane_hits(*self._pull_hits(self._chain_search_dispatch(codes, lengths)))
+        units = []
+        for qi, (r1, r2) in enumerate(queries):
+            chosen = self._translated_choice(hits_at, 6 * nr * qi, r2 is not None and nr == 2)
+            h = np.array([h for h, _ in chosen], np.int64).reshape(-1, 4)
+            hd = dict(sp=h[:, 0], ep=h[:, 1], l=h[:, 2], off=h[:, 3],
+                      strand=np.array([s for _, s in chosen], np.int64))
             ql = len(r1) + (len(r2) if r2 is not None else 0)
-            fast_units.append(dict(hits=hd, query_length=ql))
-        return finalize_units(self, fast_units, self._resolve_batch_rows)
+            units.append(dict(hits=hd, query_length=ql))
+        return finalize_units(self, units, self._resolve_batch_rows)
+
+    def _translated_choice(self, hits_at, lane0, mate2):
+        """TranslatedSearch's frame and strand choice for one unit
+        (Classifier.hpp:451-493) -> [(hit, strand), ...].  hits_at(lane) gives
+        a lane's chain; lanes lane0 + 0..5 are read 1's forward and reverse
+        complement frames, + 6..11 (where mate2) read 2's.  A strand keeps
+        its frame of most count x score, the earlier on a tie; read 2's
+        reverse-complement frames join plus, its forward frames minus.  The
+        higher-scoring strand wins, both on a tie, plus first."""
+        def best_frame(l0):
+            frames = [hits_at(l0 + f) for f in range(3)]
+            scores = [len(fh) * sum(self.hit_score(h[2]) for h in fh) for fh in frames]
+            return frames[scores.index(max(scores))]
+
+        plus, minus = best_frame(lane0), best_frame(lane0 + 3)
+        if mate2:
+            plus = plus + best_frame(lane0 + 9)
+            minus = minus + best_frame(lane0 + 6)
+        sc_p = sum(self.hit_score(h[2]) for h in plus)
+        sc_m = sum(self.hit_score(h[2]) for h in minus)
+        return ([(h, 1) for h in plus] if sc_p >= sc_m else []) + \
+            ([(h, -1) for h in minus] if sc_m >= sc_p else [])
 
     def _adjusted_unit_hits(self, r1, r2, c1f, c1r, c2f, c2r, f1, rc1, f2, rc2,
                             search1=None, search2=None):

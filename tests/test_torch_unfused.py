@@ -23,7 +23,8 @@ torch.set_num_threads(1)   # the suite runs in several worker processes
 KS = [("k1", []), ("k2", ["-k", "2"]), ("k5", ["-k", "5"])]
 CASES = ("long", "k0", "hitk0")
 PARAMS = {"long": dict(max_result=1), "k0": dict(max_result=0),
-          "hitk0": dict(max_result=2, max_result_per_hit_factor=0)}
+          "hitk0": dict(max_result=2, max_result_per_hit_factor=0),
+          "mixed": dict(max_result=2)}
 
 
 @pytest.mark.parametrize("tag,extra", KS)
@@ -167,26 +168,66 @@ def test_unfused_matches_classifier_jax(small_index, case, monkeypatch):
         assert max(len(w.tax_ids) for w in want) > 1
 
 
+LOOPS = ("query_pipelined_packed", "query_pipelined", "serve_tsv_prepacked")
+
+
+@pytest.fixture(scope="module")
+def jax_fused_results():
+    """ClassifierFused.query_batch's results a case, made once a module."""
+    return {}
+
+
+def loop_lines(port, loop, batches, ids):
+    """Each batch's TSV lines and classified count through one serving loop
+    of ClassifierTorch, checking the loop's tuple a batch."""
+    if loop == "serve_tsv_prepacked":
+        items = [(i, b) + port._pack_reads(b)[:3] for i, b in zip(ids, batches)]
+        out = list(port.serve_tsv_prepacked(iter(items)))
+        assert [nq for _, _, nq in out] == [len(b) for b in batches]
+        return [(lines, ncls) for lines, ncls, _ in out], out
+    out = list(getattr(port, loop)(iter(batches)))
+    assert len(out) == len(batches)
+    if loop == "query_pipelined":
+        assert [len(r) for r in out] == [len(b) for b in batches]
+        return [port.format_tsv_batch(None, dict(enumerate(r)), b, i)
+                for r, b, i in zip(out, batches, ids)], out
+    for (_, _, q), b in zip(out, batches):
+        assert len(q) == len(b) and all(x is y for x, y in zip(q, b))
+    return [port.format_tsv_batch(p, fb, q, i) for (p, fb, q), i in zip(out, ids)], out
+
+
+@pytest.mark.parametrize("loop", LOOPS)
 @pytest.mark.parametrize("case", CASES)
-def test_fused_engine_routes_to_unfused(small_index, case, monkeypatch):
+def test_fused_engine_routes_to_unfused(small_index, case, loop, monkeypatch,
+                                        jax_fused_results):
     """ClassifierTorch hands the batch to the non-fused engine, as
-    ClassifierFused hands it to ClassifierJax: in the pipelined route the CLI
-    takes (a batch the fused program takes, then the case's batch) and, but
-    for the long reads (whose chain search is slow on the CPU), in
-    query_batch."""
+    ClassifierFused hands it to ClassifierJax: through each pipelined loop
+    (a batch the fused program takes, the case's batch, another such batch),
+    in order and with each loop's tuple, and, but for the long reads (whose
+    chain search is slow on the CPU), in query_batch."""
     _, jfused, _, port = engines(small_index, case, monkeypatch)
     qs = queries(case)
-    want = jfused.query_batch(qs)
-    if case != "long":
+    if case not in jax_fused_results:
+        jax_fused_results[case] = jfused.query_batch(qs)
+    want = jax_fused_results[case]
+    if case != "long" and loop == LOOPS[0]:
         for i, (g, w) in enumerate(zip(port.query_batch(qs), want)):
             assert _results_equal(w, g), i
-    plain = _rand_reads(random.Random(2), small_genomes(), 8, 100, True)
-    out = list(port.query_pipelined_packed(iter([plain, qs])))
-    assert (out[0][0] is not None) == port._fused_ok() and out[1][0] is None
-    for i, w in enumerate(want):
-        assert _results_equal(w, out[1][1][i]), i
-    lines, _ = port.format_tsv_batch(out[1][0], out[1][1], qs, ["r"] * len(qs))
-    assert len(lines) >= len(qs)
+    plain = [_rand_reads(random.Random(s), small_genomes(), 8, 100, True) for s in (2, 4)]
+    batches = [plain[0], qs, plain[1]]
+    ids = [["b%dr%d" % (k, i) for i in range(len(b))] for k, b in enumerate(batches)]
+    expect = [port.query_batch(plain[0]), want, port.query_batch(plain[1])]
+    got, out = loop_lines(port, loop, batches, ids)
+    for k, (b, res, i) in enumerate(zip(batches, expect, ids)):
+        assert got[k] == port.format_tsv_batch(None, dict(enumerate(res)), b, i), k
+    if loop == "query_pipelined_packed":
+        assert [o[0] is not None for o in out] == [port._fused_ok(), False, port._fused_ok()]
+        for i, w in enumerate(want):
+            assert _results_equal(w, out[1][1][i]), i
+    elif loop == "query_pipelined":
+        for i, w in enumerate(want):
+            assert _results_equal(w, out[1][i]), i
+    assert len(got[1][0]) >= len(qs)
 
 
 # ------------------------------------------------------------ protein
@@ -226,7 +267,8 @@ def protein_index(tmp_path_factory):
 def protein_queries(case):
     """-k 0: the fixture's nucleotide reads, paired with later ones, one mate
     empty.  long: the fixture's reads end to end, 10,000 bp (over the fused
-    engine's 8,192), beside one short unit."""
+    engine's 8,192), beside one short unit.  mixed: pairs and single reads in
+    one batch, one mate empty."""
     reads = []
     with open(os.path.join(PFX, "reads_1.fq")) as f:
         for i, line in enumerate(f):
@@ -236,13 +278,16 @@ def protein_queries(case):
         return [(np.concatenate(reads * 2), None), (reads[7], None)]
     qs = [(reads[i], reads[24 + i]) for i in range(24)]
     qs[5] = (qs[5][0], np.zeros(0, np.uint8))
+    if case == "mixed":
+        qs = [(r1, None) if i % 3 == 1 else (r1, r2) for i, (r1, r2) in enumerate(qs)]
     return qs
 
 
-@pytest.mark.parametrize("case", ["k0", "long"])
+@pytest.mark.parametrize("case", ["k0", "long", "mixed"])
 def test_unfused_protein_matches_jax(protein_index, case, monkeypatch):
     """The translated search of the non-fused engine against ClassifierJax's,
-    and ClassifierTorch (which hands it the batch) against ClassifierFused."""
+    and ClassifierTorch (which hands it the batch, or, mixed, runs it on the
+    fused program) against ClassifierFused."""
     from centrifuger_tpu.classify import engine_jax
     from centrifuger_tpu.classify.engine_fused import ClassifierFused
     from centrifuger_tpu.classify.engine_jax import ClassifierJax
@@ -270,3 +315,55 @@ def test_unfused_protein_matches_jax(protein_index, case, monkeypatch):
     fused = ClassifierTorch(fm, tax, ClassifierParam(**p), protein=True, dev=tdev)
     for i, (g, w) in enumerate(zip(fused.query_batch(qs), jfused.query_batch(qs))):
         assert _results_equal(w, g), i
+
+
+def _hit(l, k):
+    return (k, k + 1, l, k)
+
+
+A20, B15, C20, D25, E15, F20, G25 = (_hit(l, k) for k, l in enumerate(
+    (20, 15, 20, 25, 15, 20, 25), 1))
+# case -> (mate 2, {lane - lane0: chains}, the chosen (hit, strand) list);
+# min_hit_len 10, so a hit of l scores (l - 5)^2: 15 -> 100, 20 -> 225, 25 -> 400
+CHOICES = {
+    # plus frames 0 and 1 tie (1 x 225): the earlier wins; plus 225 > minus 100
+    "frame_tie": (False, {0: [A20], 1: [C20], 3: [B15]}, [(A20, 1)]),
+    # minus takes frame 5 (2 x 325) over frame 3 (1 x 225); 325 = 325 keeps
+    # both strands, plus first
+    "strand_tie": (False, {1: [A20, B15], 3: [C20], 5: [F20, E15]},
+                   [(A20, 1), (B15, 1), (F20, -1), (E15, -1)]),
+    # read 2's reverse-complement frames (9-11) join plus, its forward frames
+    # (6-8) minus: 225 + 400 against 225
+    "mate2_joins_opposite": (True, {0: [A20], 6: [C20], 9: [D25]}, [(A20, 1), (D25, 1)]),
+    # no mate 2: its lanes, were they read, would tip the strands
+    "no_mate2": (False, {0: [A20], 3: [B15], 6: [D25], 9: [G25]}, [(A20, 1)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHOICES))
+def test_translated_choice(protein_index, case):
+    """The frame-and-strand choice both engines share (_translated_choice)
+    on hand-made chains of the second unit of a batch, directly and through
+    the fused engine's flagged-unit path, which is held to ClassifierFused's
+    on the same chains."""
+    from centrifuger_tpu.classify.engine_fused import ClassifierFused
+    from centrifuger_tpu.classify.params import ClassifierParam as JaxParam
+    from centrifuger_tpu_torch.classify.engine import ClassifierTorch
+    from centrifuger_tpu_torch.classify.params import ClassifierParam
+    (jfm, jtax, jdev), (fm, tax, tdev, _) = protein_index
+    mate2, lanes, want = CHOICES[case]
+    table = {12 + k: v for k, v in lanes.items()}
+    table.update({k: [_hit(40, 100 + k)] for k in range(12)})   # unit 0's
+    hits_at = lambda lane: list(table.get(lane, []))
+    port = ClassifierTorch(fm, tax, ClassifierParam(min_hit_len=10), protein=True, dev=tdev)
+    assert port._translated_choice(hits_at, 12, mate2) == want
+    r = np.frombuffer(b"ACGTTGCA" * 6, np.uint8)
+    qs = [(r, r), (r, r if mate2 else None)]
+    [(qi, hs, qlen)] = port._fallback_unit_hits_protein(qs, np.array([1]), hits_at, 2)
+    assert (qi, qlen) == (1, 96 if mate2 else 48)
+    got = [(h.sp, h.ep, h.l, h.offset, h.strand) for h in hs]
+    assert got == [h + (s,) for h, s in want]
+    jfused = ClassifierFused(jfm, jtax, JaxParam(min_hit_len=10), protein=True, dev=jdev)
+    [(jqi, jhs, jqlen)] = jfused._fallback_unit_hits_protein(qs, np.array([1]), hits_at, 2)
+    assert (jqi, jqlen) == (qi, qlen)
+    assert [(h.sp, h.ep, h.l, h.offset, h.strand) for h in jhs] == got
